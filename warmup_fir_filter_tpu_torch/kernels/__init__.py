@@ -1,8 +1,12 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and dispatch.
 
-- ``fir_band``    kernel A (``csrc/fir_band.cu``), ports the TPU band
-                  kernels K1/K2 (``fir_mxu.py``), L ≤ 257;
-- ``fir_direct``  kernel B (``csrc/fir_direct.cu``), ports the TPU
-                  direct-form kernel K4 (``fir_pallas.py``), any L;
-- ``dispatch``    ``fir1d_fixed_rows_auto``.
+- ``fir_band``     kernel A (``csrc/fir_band.cu``), ports the TPU band
+                   kernels K1/K2 (``fir_mxu.py``), L ≤ 257;
+- ``fir_direct``   kernel B (``csrc/fir_direct.cu``), ports the TPU
+                   direct-form kernel K4 (``fir_pallas.py``), any L;
+- ``fir_window``   kernel C (``csrc/fir_window.cu``), ports the TPU
+                   windowed band kernel K3 (``fir_mxu.py``), L ≤ 4,096;
+- ``window_copy``  kernel D (``csrc/window_copy.cu``), ports the TPU
+                   window-copy kernel K5 (``window_copy.py``);
+- ``dispatch``     ``prepare_fixed_fir`` and ``fir1d_fixed_rows_auto``.
 """

@@ -1,34 +1,60 @@
 """Kernel choice for the bit-exact fixed-point FIR.
 
 Counterpart of ``warmup_fir_filter_tpu/kernels/dispatch.py:46-64``.  The
-choice is made by tap count alone and runs on the input's device:
+choice is made by tap count alone, as the JAX package makes it, and runs
+on the input's device:
 
 - L ≤ 257: the band kernel (kernel A, ``fir_band``), which ports K1 and K2;
-- L > 257: the direct-form kernel (kernel B, ``fir_direct``), which ports
-  K4.  The JAX package sends 258-4,096 taps to its windowed band kernel
-  (K3); K3 is not ported yet (ROADMAP), so those tap counts take kernel B.
-- ``acc_bits > 32`` fits neither kernel: on a CUDA tensor it raises, as
+- 258 ≤ L ≤ 4,096: the windowed kernel (kernel C, ``fir_window``), which
+  ports K3;
+- L > 4,096: the direct-form kernel (kernel B, ``fir_direct``), which
+  ports K4.
+- ``acc_bits > 32`` fits none of them: on a CUDA tensor it raises, as
   ``FixedFir1d.from_numpy`` does; on a CPU tensor it runs the host golden.
   The fixed stage sends such formats to the golden before any tensor is
   made (``pipeline/stages.py::_fixed_compute``), as the JAX package's
   stage does.
 
-On a CUDA tensor the chosen kernel launches or raises; on a CPU tensor the
-same choice runs its plain version.  Nothing falls back from one to the
-other.  ``fir2d_fixed_auto`` is not ported yet.
+:func:`prepare_fixed_fir` quantizes a filter and uploads its buffers once,
+for callers that filter many blocks (``ops/streaming.py``); a module's
+forward takes a CPU or a CUDA tensor on the module's device.  On a CUDA
+tensor the chosen kernel launches or raises; on a CPU tensor the same
+choice runs its plain version.  Nothing falls back from one to the other.
+``fir2d_fixed_auto`` is not ported yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from warmup_fir_filter_tpu_torch.kernels.fir_band import MAX_TAPS, FixedFir1d
-from warmup_fir_filter_tpu_torch.kernels.fir_direct import fir_direct
+from warmup_fir_filter_tpu_torch.kernels.fir_direct import FixedFirDirect
+from warmup_fir_filter_tpu_torch.kernels.fir_window import (
+    MAX_TAPS as MAX_TAPS_WINDOWED,
+    FixedFirWindow,
+)
 from warmup_fir_filter_tpu_torch.reference import (
     QFormat,
     fir1d_fixed_golden_rows,
 )
+
+
+def prepare_fixed_fir(h, qformat: QFormat = QFormat(),
+                      device: torch.device | str = "cpu") -> nn.Module:
+    """The filter prepared for its kernel on ``device``, chosen by tap count.
+
+    ``FixedFir1d`` (kernel A) for L ≤ 257, ``FixedFirWindow`` (kernel C)
+    for 258-4,096 and ``FixedFirDirect`` (kernel B) beyond.  Raises for
+    ``acc_bits > 32``.
+    """
+    num_taps = int(np.asarray(h).size)
+    if num_taps <= MAX_TAPS:
+        return FixedFir1d.from_numpy(h, qformat, device)
+    if num_taps <= MAX_TAPS_WINDOWED:
+        return FixedFirWindow.from_numpy(h, qformat, device)
+    return FixedFirDirect(h, qformat, device)
 
 
 def fir1d_fixed_rows_auto(x_u8: torch.Tensor, h,
@@ -42,6 +68,4 @@ def fir1d_fixed_rows_auto(x_u8: torch.Tensor, h,
             )
         return torch.from_numpy(
             fir1d_fixed_golden_rows(x_u8.numpy(), np.asarray(h), qformat))
-    if np.asarray(h).size <= MAX_TAPS:
-        return FixedFir1d.from_numpy(h, qformat, x_u8.device)(x_u8)
-    return fir_direct(x_u8, h, qformat)
+    return prepare_fixed_fir(h, qformat, x_u8.device)(x_u8)

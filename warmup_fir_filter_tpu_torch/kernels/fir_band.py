@@ -229,13 +229,22 @@ def fir_band_plain(x_u8: torch.Tensor, fir: FixedFir1d) -> torch.Tensor:
         if center:
             prod = prod + nxt @ a_next[plane]
         acc = (acc + (prod << exp)) & 0xFFFFFFFF
-    acc = torch.where(acc >= 1 << 31, acc - (1 << 32), acc)
-    qf = fir.qformat
-    if fir.wrap:
-        out = fixed_epilogue_i32(acc, qf.frac_bits, qf.acc_bits)
-    else:
-        out = (acc >> qf.frac_bits).clamp_(0, 255).to(torch.uint8)
+    out = plain_epilogue(acc, fir.qformat, fir.wrap)
     return out.reshape(batch, n_pad)[:, :n].contiguous()
+
+
+def plain_epilogue(acc: torch.Tensor, qformat: QFormat,
+                   wrap: bool) -> torch.Tensor:
+    """The kernels' epilogue on int64 accumulators held mod 2^32.
+
+    Reinterpret as int32, then the wrap path (``fixed_epilogue_i32``) or,
+    where the rounding bias was folded into the start value, one
+    arithmetic shift and the saturation.
+    """
+    acc = torch.where(acc >= 1 << 31, acc - (1 << 32), acc)
+    if wrap:
+        return fixed_epilogue_i32(acc, qformat.frac_bits, qformat.acc_bits)
+    return (acc >> qformat.frac_bits).clamp_(0, 255).to(torch.uint8)
 
 
 def fir_band(x_u8: torch.Tensor, fir: FixedFir1d) -> torch.Tensor:
@@ -249,10 +258,7 @@ def fir_band(x_u8: torch.Tensor, fir: FixedFir1d) -> torch.Tensor:
     if x_u8.device.type == "cpu":
         return fir_band_plain(x_u8, fir)
     _build.check_launchable(x_u8)
-    if fir.digits.device != x_u8.device:
-        raise ValueError(
-            f"filter buffers on {fir.digits.device}, samples on {x_u8.device}"
-        )
+    _build.check_same_device(x_u8, fir.digits, "filter buffers")
     qf = fir.qformat
     if not 1 <= qf.frac_bits <= 31:
         raise ValueError(f"band kernel needs 1 <= frac_bits <= 31, "
