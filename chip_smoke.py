@@ -15,7 +15,10 @@ of them pass:
 3. kernels  each kernel against its plain PyTorch version (``torch.equal``,
             tolerance 0) over taps × widths × Q-formats and geometries, at
             the main paths' shapes, and against the host golden on the
-            small shapes.
+            small shapes; for the 2-D kernels E, F and G (the plain
+            versions run on the card too) the bank and random filters up
+            to 33 × 257 over widths 1-4,099, whole frames compared (kernel
+            G within 1 where its f32 sums can round).
 4. main     the port's CLI (``--backend auto --device cuda``) over a
             synthetic corpus at the reference corpus's size (seven images,
             67,975,252 samples per tap group); every fixed output against
@@ -31,15 +34,28 @@ of them pass:
             ``process``; kernels D and A must have carried the scan.
 6. stream   the same gates for a 1,001-tap Hamming low-pass over 16
    long    blocks of the same shape, carried by kernel C.
-7. times    CUDA-event medians (per call, over windows of back-to-back
+7. 2-D      BASELINE config 3 (5×5 gauss5 over a seeded 512 × 512 image)
+   config 3 through ``fir2d_fixed_auto``: bit-exact against the golden,
+            RMSE < 0.5 against the ideal golden, kernel F alone; the f32
+            model on the card within 1e-2; a 3×129 filter through kernel E
+            alone and a 3×258 one through no kernel.
+8. 2-D      ``bench_2d.py``'s geometry (8192 × 8192 u8 from its seed):
+   frames   five steps of two chained applies through ``scratch`` for
+            sharpen5 and gauss5 on the overlapped frame (kernel F), the
+            plain frame (kernel E) and the bf16 path (kernel G); each crop
+            equal to ``fir2d_fixed_torch`` applied ten times, each frame
+            still a frame, kernel G's frames equal to kernel F's.
+9. times    CUDA-event medians (per call, over windows of back-to-back
             calls) at 19,456 × 8,192 uint8, Q4.12: kernels A and B and the
             plain direct path at 5 taps; kernels C and B at 1,001 and
             4,096 taps, the plain path over single calls; kernel D and its
             plain version at the stream's geometry; the 5-tap stream's
-            per-block split into kernel D, the FIR and the checksums.
+            per-block split into kernel D, the FIR and the checksums; at
+            8192² kernels E, F and G, their plain versions,
+            ``fir2d_fixed_torch`` and a frame ``copy_``.
 
-Launch counts are zeroed just before each main path (phases 4, 5 and 6)
-and read just after it.  Then one JSON line for the kernels, the card
+Launch counts are zeroed just before each main path (phases 4-8) and read
+just after it.  Then one JSON line for the kernels, the card
 line, and as the last line ``{"ok": true, "device": {...}}``.  Inputs
 come from numpy/torch generators seeded with ``SEED``.
 """
@@ -59,6 +75,23 @@ import torch
 
 from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.cli import main as cli_main
+from warmup_fir_filter_tpu_torch.kernels.dispatch import fir2d_fixed_auto
+from warmup_fir_filter_tpu_torch.kernels.fir2d import (
+    FixedFir2d,
+    bf16_2d_exact,
+    crop_frame_overlap,
+    fir2d_bf16,
+    fir2d_bf16_plain,
+    fir2d_fixed_frame,
+    fir2d_fixed_frame_overlap,
+    fir2d_frame,
+    fir2d_frame_overlap_bf16,
+    fir2d_frame_plain,
+    fir2d_oframe,
+    fir2d_oframe_plain,
+    pad_frame,
+    pad_frame_overlap,
+)
 from warmup_fir_filter_tpu_torch.kernels.fir_band import (
     FixedFir1d,
     fir_band,
@@ -80,6 +113,13 @@ from warmup_fir_filter_tpu_torch.kernels.window_copy import (
 from warmup_fir_filter_tpu_torch.ops.fir1d import (
     fir1d_fixed_rows_torch,
     fixed_fir_prehaloed_i32,
+)
+from warmup_fir_filter_tpu_torch.ops.fir2d import (
+    FILTER_BANK_2D,
+    fir2d_fixed_golden,
+    fir2d_fixed_torch,
+    fir2d_ideal_golden,
+    fir2d_ideal_torch,
 )
 from warmup_fir_filter_tpu_torch.ops.streaming import (
     Fir1DStream,
@@ -158,7 +198,27 @@ PLAIN_LONG_CALLS = 3
 STEP_BLOCKS = 60
 STEP_SKIP = 10
 MASK32 = 0xFFFFFFFF
-KERNELS = ("fir_band", "fir_direct", "fir_window", "window_rows")
+#: Kernels E, F and G's grid: random filters (F's widest, E just past it,
+#: E's widest and tallest) beside the bank, Q4.12 with a 32- and an 18-bit
+#: accumulator, widths around a tile, 70 rows over 16-row blocks.
+GRID_2D_SHAPES = ((2, 4), (9, 3), (5, 97), (3, 98), (33, 257))
+GRID_2D_FORMATS = ((16, 12, 32), (16, 12, 18))
+GRID_2D_WIDTHS = (1, 127, 128, 700, 4099)
+GRID_2D_HEIGHT = 70
+GRID_2D_BLOCK_ROWS = 16
+GOLDEN_2D_MAX_WIDTH = 700
+#: BASELINE config 3 as bench_configs.py:72-92 runs it.
+CONFIG3_SEED = 3
+CONFIG3_SHAPE = (512, 512)
+#: bench_2d.py's geometry: an 8192 × 8192 u8 image from its seed, chained
+#: two applies a step, the dead frame as the second apply's scratch.
+FRAME_SIZE = 8192
+FRAME_SEED = 20260819
+FRAME_STEPS = 5
+FRAME_TIMING_LAUNCHES = 10
+PLAIN_2D_CALLS = 2
+KERNELS = ("fir_band", "fir_direct", "fir_window", "window_rows",
+           "fir2d_frame", "fir2d_oframe", "fir2d_bf16")
 
 
 def phase(name: str) -> None:
@@ -187,12 +247,24 @@ def design_lowpass(num_taps: int, cutoff: float) -> np.ndarray:
 def launch_counts() -> dict:
     return {"fir_band": fir_band.launches, "fir_direct": fir_direct.launches,
             "fir_window": fir_window.launches,
-            "window_rows": window_rows.launches}
+            "window_rows": window_rows.launches,
+            "fir2d_frame": fir2d_frame.launches,
+            "fir2d_oframe": fir2d_oframe.launches,
+            "fir2d_bf16": fir2d_bf16.launches}
 
 
 def reset_launch_counts() -> None:
     fir_band.launches = fir_direct.launches = 0
     fir_window.launches = window_rows.launches = 0
+    fir2d_frame.launches = fir2d_oframe.launches = fir2d_bf16.launches = 0
+
+
+def only(counts: dict, name: str, at_least: int, label: str) -> None:
+    """Raise unless kernel ``name`` ran ``at_least`` times and no other."""
+    if counts[name] < at_least or any(
+            counts[other] for other in KERNELS if other != name):
+        raise AssertionError(f"{label} launches {counts}: expected {name} "
+                             f">= {at_least} and no other kernel")
 
 
 def random_taps(rng: np.random.Generator, qf, num_taps: int) -> np.ndarray:
@@ -209,14 +281,17 @@ class Agreement:
         self.count = 0
         self.max_abs_err = 0
 
-    def check(self, got, want, label: str) -> None:
-        got = got.cpu()
+    def check(self, got, want, label: str, tolerance: int = 0) -> None:
+        got = got.to(want.device)
         err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max()) \
             if got.numel() else 0
         self.max_abs_err = max(self.max_abs_err, err)
         self.count += 1
-        if not torch.equal(got, want):
-            raise AssertionError(f"{label}: kernel != plain (max |diff| {err})")
+        ok = (torch.equal(got, want) if tolerance == 0
+              else got.shape == want.shape and err <= tolerance)
+        if not ok:
+            raise AssertionError(f"{label}: kernel != plain (max |diff| {err}, "
+                                 f"tolerance {tolerance})")
 
 
 def check_kernels(agree: dict) -> None:
@@ -283,6 +358,7 @@ def check_kernels(agree: dict) -> None:
           f"{agree_direct.count}, window {agree['fir_window'].count}, "
           f"window_rows {agree['window_rows'].count}, all torch.equal",
           flush=True)
+    check_kernels_2d(agree, rng)
 
     # The main path's own shapes and filters.
     qf = QFormat()
@@ -341,6 +417,227 @@ def check_stream_shapes(agree: dict, rng: np.random.Generator) -> None:
                FixedFirWindow.from_numpy(h, qf, "cuda")(x.cuda()), x,
                lambda rows: fir_window_plain(rows, fir_cpu), 1,
                f"window stream block {tuple(x.shape)}")
+
+
+def random_taps_2d(rng: np.random.Generator, shape) -> np.ndarray:
+    """Taps of both signs scaled by 1/sqrt(Lr·Lc), so that a filter's
+    outputs spread over the u8 range instead of saturating."""
+    return rng.uniform(-1.0, 1.0, size=shape) * 2.0 / np.sqrt(np.prod(shape))
+
+
+def bf16_sums_exact(fir: FixedFir2d) -> bool:
+    """Whether kernel G's f32 sums are all exact integers (below 2^24), so
+    any order of summation gives the same frame."""
+    return 255 * float(fir.bf16_rows.double().abs().sum()) < 2 ** 24
+
+
+def frame_of(kind: str, x: torch.Tensor, taps, block_rows=None):
+    """``(frame, core, block_rows)`` of the layout a kernel takes."""
+    if kind == "fir2d_frame":
+        frame, geo = pad_frame(x, taps[0], block_rows=block_rows)
+    else:
+        frame, geo = pad_frame_overlap(x, *taps, block_rows=block_rows)
+    return frame, geo[:3], geo[3]
+
+
+def crop_of(kind: str, frame: torch.Tensor, taps, core) -> torch.Tensor:
+    t0, h_img, w_img = core
+    if kind == "fir2d_frame":
+        return frame[t0 : t0 + h_img, 128 : 128 + w_img]
+    return crop_frame_overlap(frame, taps[1], core)
+
+
+KERNELS_2D = {"fir2d_frame": (fir2d_frame, fir2d_frame_plain),
+              "fir2d_oframe": (fir2d_oframe, fir2d_oframe_plain),
+              "fir2d_bf16": (fir2d_bf16, fir2d_bf16_plain)}
+
+
+def check_2d(agree: dict, kind: str, x: torch.Tensor, fir: FixedFir2d,
+             label: str, block_rows=None) -> torch.Tensor:
+    """One kernel apply against its plain version on the same frame, on
+    the card; returns the kernel's crop."""
+    frame, core, _ = frame_of(kind, x, fir.taps, block_rows)
+    kernel, plain = KERNELS_2D[kind]
+    got = kernel(frame, fir, core, out=torch.full_like(frame, 0xFF))
+    exact = kind != "fir2d_bf16" or bf16_sums_exact(fir)
+    agree[kind].check(got, plain(frame, fir, core), label,
+                      tolerance=0 if exact else 1)
+    return crop_of(kind, got, fir.taps, core)
+
+
+def check_kernels_2d(agree: dict, rng: np.random.Generator) -> None:
+    """Kernels E, F and G against their plain versions, on the card, over
+    the bank and the random shapes × formats × widths; against the golden
+    copy up to GOLDEN_2D_MAX_WIDTH columns (kernel G where bf16_2d_exact
+    holds)."""
+    filters = [(name, np.asarray(h)) for name, h in FILTER_BANK_2D.items()]
+    filters += [(f"{r}x{c}", random_taps_2d(rng, (r, c)))
+                for r, c in GRID_2D_SHAPES]
+    for f in GRID_2D_FORMATS:
+        qf = QFormat(*f)
+        for name, h in filters:
+            fir = FixedFir2d.from_numpy(h, qf, "cuda")
+            kinds = ["fir2d_frame"]
+            if 0 < h.shape[1] - 1 <= 96:
+                kinds += ["fir2d_oframe", "fir2d_bf16"]
+            golden_ok = {"fir2d_frame": True, "fir2d_oframe": True,
+                         "fir2d_bf16": bf16_2d_exact(
+                             fir.h_fixed.cpu().numpy(), qf)}
+            for n in GRID_2D_WIDTHS:
+                x = rng.integers(0, 256, size=(GRID_2D_HEIGHT, n),
+                                 dtype=np.uint8)
+                golden = (fir2d_fixed_golden(x, h, qf)
+                          if n <= GOLDEN_2D_MAX_WIDTH else None)
+                for kind in kinds:
+                    label = f"{kind} {name} {GRID_2D_HEIGHT}x{n} fmt={f}"
+                    crop = check_2d(agree, kind, torch.from_numpy(x).cuda(),
+                                    fir, label, GRID_2D_BLOCK_ROWS)
+                    if golden is not None and golden_ok[kind] and not \
+                            np.array_equal(crop.cpu().numpy(), golden):
+                        raise AssertionError(f"{label}: kernel != golden")
+    torch.cuda.synchronize()
+    print("[chip_smoke] 2-D grid: " + ", ".join(
+        f"{kind} {agree[kind].count}" for kind in KERNELS_2D)
+        + f" comparisons, max |diff| "
+        f"{max(agree[kind].max_abs_err for kind in KERNELS_2D)}", flush=True)
+
+
+def run_config3() -> dict:
+    """BASELINE config 3 through ``fir2d_fixed_auto``: bit-exact against
+    the golden, RMSE < 0.5 against the ideal golden, kernel F alone; the
+    f32 model on the card within 1e-2.  Then a 3×129 filter (kernel E
+    alone) and a 3×258 one (no kernel: the int32 path)."""
+    x = np.random.default_rng(CONFIG3_SEED).integers(
+        0, 256, size=CONFIG3_SHAPE, dtype=np.uint8)
+    xd = torch.from_numpy(x).cuda()
+    h = np.asarray(FILTER_BANK_2D["gauss5"])
+    reset_launch_counts()
+    sim = fir2d_fixed_auto(xd, h)
+    torch.cuda.synchronize()
+    counts = {"config3": launch_counts()}
+    only(counts["config3"], "fir2d_oframe", 1, "config 3")
+    sim = sim.cpu().numpy()
+    bit_ok = bool(np.array_equal(sim, fir2d_fixed_golden(x, h)))
+    model = fir2d_ideal_golden(x, h)
+    rmse = float(np.sqrt(np.mean((sim.astype(np.float64) - model) ** 2)))
+    ideal_err = float(np.abs(fir2d_ideal_torch(xd, h).cpu().numpy()
+                             - model).max())
+    result = {"bit_exact_vs_golden": bit_ok, "rmse_vs_model": rmse,
+              "ideal_torch_max_abs_err": ideal_err}
+    rng = np.random.default_rng(CONFIG3_SEED)
+    for shape, kernel in (((3, 129), "fir2d_frame"), ((3, 258), None)):
+        hw = random_taps_2d(rng, shape)
+        reset_launch_counts()
+        got = fir2d_fixed_auto(xd, hw)
+        torch.cuda.synchronize()
+        run = f"config3_{shape[0]}x{shape[1]}"
+        counts[run] = launch_counts()
+        if kernel is None and any(counts[run].values()):
+            raise AssertionError(f"{run} launched {counts[run]}")
+        if kernel is not None:
+            only(counts[run], kernel, 1, run)
+        result[f"{run}_bit_exact"] = bool(np.array_equal(
+            got.cpu().numpy(), fir2d_fixed_golden(x, hw)))
+    result["launches"] = counts
+    print(f"[chip_smoke] 2-D config 3 {json.dumps(result)}", flush=True)
+    if not (bit_ok and rmse < 0.5 and ideal_err <= 1e-2
+            and result["config3_3x129_bit_exact"]
+            and result["config3_3x258_bit_exact"]):
+        raise AssertionError(f"2-D config 3 failed a gate: {result}")
+    return counts
+
+
+FRAME_APPLY = {"fir2d_frame": fir2d_fixed_frame,
+               "fir2d_oframe": fir2d_fixed_frame_overlap,
+               "fir2d_bf16": fir2d_frame_overlap_bf16}
+
+
+def run_frames(agree: dict) -> dict:
+    """``bench_2d.py``'s streaming use at its geometry: FRAME_STEPS steps of
+    two chained applies, ping-ponging two frames through ``scratch``, for
+    sharpen5 and gauss5 on the overlapped frame (kernel F), the plain frame
+    (kernel E) and the bf16 path (kernel G).  Each crop must equal
+    ``fir2d_fixed_torch`` applied 2·FRAME_STEPS times on the card, each
+    frame must still be a frame (pad zero, copies agreeing: it re-embeds to
+    itself), and kernel G's frames must equal kernel F's.  Each kernel is
+    also held against its plain version on one apply of the frame."""
+    x = torch.from_numpy(np.random.default_rng(FRAME_SEED).integers(
+        0, 256, size=(FRAME_SIZE, FRAME_SIZE), dtype=np.uint8)).cuda()
+    counts = {}
+    for name in ("sharpen5", "gauss5"):
+        h = np.asarray(FILTER_BANK_2D[name])
+        want = x
+        for _ in range(2 * FRAME_STEPS):
+            want = fir2d_fixed_torch(want, h)
+        fir = FixedFir2d.from_numpy(h, QFormat(), "cuda")
+        frames = {}
+        for kind in KERNELS_2D:
+            check_2d(agree, kind, x, fir, f"{kind} {name} "
+                     f"{FRAME_SIZE}x{FRAME_SIZE}")
+            a, core, block_rows = frame_of(kind, x, h.shape)
+            b = torch.empty_like(a)
+            run = f"frames_{name}_{kind}"
+            reset_launch_counts()
+            for _ in range(FRAME_STEPS):
+                b = FRAME_APPLY[kind](a, h, core=core, block_rows=block_rows,
+                                      scratch=b)
+                a = FRAME_APPLY[kind](b, h, core=core, block_rows=block_rows,
+                                      scratch=a)
+            torch.cuda.synchronize()
+            counts[run] = launch_counts()
+            only(counts[run], kind, 2 * FRAME_STEPS, run)
+            crop = crop_of(kind, a, h.shape, core)
+            again, _, _ = frame_of(kind, crop, h.shape, block_rows)
+            gates = {"crop_equals_torch": bool(torch.equal(crop, want)),
+                     "fixed_point": bool(torch.equal(again, a))}
+            if kind == "fir2d_bf16":
+                gates["equals_kernel_f"] = bool(torch.equal(
+                    a, frames["fir2d_oframe"]))
+            frames[kind] = a
+            print(f"[chip_smoke] 2-D frames {name} {kind} {tuple(a.shape)} "
+                  f"x {2 * FRAME_STEPS} applies: {gates}", flush=True)
+            if not all(gates.values()):
+                raise AssertionError(f"{run} failed a gate: {gates}")
+        del frames, want
+    return counts
+
+
+def time_2d(card: str) -> dict:
+    """Per-apply CUDA-event medians at bench_2d.py's 8192² for kernels E,
+    F and G (windows of FRAME_TIMING_LAUNCHES back-to-back applies into a
+    second frame), ``fir2d_fixed_torch`` on the image, the plain versions
+    and a ``copy_`` of the overlapped frame."""
+    x = torch.from_numpy(np.random.default_rng(FRAME_SEED).integers(
+        0, 256, size=(FRAME_SIZE, FRAME_SIZE), dtype=np.uint8)).cuda()
+    samples = FRAME_SIZE * FRAME_SIZE
+    out = {}
+    for name in ("sharpen5", "gauss5"):
+        h = np.asarray(FILTER_BANK_2D[name])
+        fir = FixedFir2d.from_numpy(h, QFormat(), "cuda")
+        runs, plain_runs = {}, {}
+        for kind, (kernel, plain) in KERNELS_2D.items():
+            frame, core, _ = frame_of(kind, x, h.shape)
+            dst = torch.empty_like(frame)
+            runs[kind] = (lambda k=kernel, f=frame, c=core, d=dst:
+                          k(f, fir, c, out=d))
+            plain_runs[kind] = lambda p=plain, f=frame, c=core: p(f, fir, c)
+        runs["torch"] = lambda: fir2d_fixed_torch(x, h)
+        frame = frame_of("fir2d_oframe", x, h.shape)[0]
+        copy_dst = torch.empty_like(frame)
+        runs["copy"] = lambda: copy_dst.copy_(frame)
+        med = median_ms(runs, TIMING_REPS, FRAME_TIMING_LAUNCHES)
+        med.update({f"{kind}_plain": v for kind, v in median_ms(
+            plain_runs, PLAIN_LONG_CALLS, PLAIN_2D_CALLS).items()})
+        for run, (m, lo, hi) in med.items():
+            rate = (f"{2 * frame.numel() / m / 1e6:.1f} GB/s copied"
+                    if run == "copy" else
+                    f"{samples / m / 1e3:.1f} Msamples/s an apply")
+            print(f"[chip_smoke] time 2-D {name} {run}: median {m:.4f} ms "
+                  f"(min {lo:.4f}, max {hi:.4f}) {rate} "
+                  f"[{FRAME_SIZE}x{FRAME_SIZE} u8, Q4.12; {card}]",
+                  flush=True)
+        out[name] = {run: m for run, (m, _, _) in med.items()}
+    return out
 
 
 def write_corpus(have_pil: bool) -> tuple[Path | None, list[str]]:
@@ -712,6 +1009,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    # Kernel G's plain version multiplies in f32 on the card: no TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(f"[chip_smoke] card: {card}", flush=True)
     print(f"[chip_smoke] python {sys.version.split()[0]}, torch "
@@ -758,12 +1057,19 @@ def main() -> int:
         raise AssertionError(f"long-tap stream launches {counts}: expected "
                              "kernel C only")
 
-    phase("7 times")
+    phase("7 2-D config 3")
+    launches.update(run_config3())
+
+    phase("8 2-D frames")
+    launches.update(run_frames(agree))
+
+    phase("9 times")
     medians = time_kernels(card)
     long_taps = time_long_taps(card)
     sustained_ms = (STREAM_CHANNELS * STREAM_BLOCK
                     / stream_5tap["msamples_per_s"] / 1e3)
     split = time_stream_step(card, sustained_ms)
+    times_2d = time_2d(card)
 
     def counted(name: str) -> dict:
         runs = {f"launches_{run}": run_counts[name]
@@ -809,6 +1115,20 @@ def main() -> int:
          "comparisons": agree["window_rows"].count,
          "ms": split["window_rows"], "plain_ms": split["window_rows_plain"]},
     ]
+    for kind, source, line in (("fir2d_frame", "fir2d_frame.cu", 173),
+                               ("fir2d_oframe", "fir2d_frame.cu", 571),
+                               ("fir2d_bf16", "fir2d_bf16.cu", 1000)):
+        kernels.append({
+            "name": kind, "route": "cuda",
+            "source": f"warmup_fir_filter_tpu_torch/csrc/{source}",
+            "replaces": f"warmup_fir_filter_tpu/kernels/fir2d_mxu.py:{line}",
+            **counted(kind), "max_abs_err": agree[kind].max_abs_err,
+            "comparisons": agree[kind].count,
+            "ms": times_2d["sharpen5"][kind],
+            "plain_ms": times_2d["sharpen5"][f"{kind}_plain"],
+            "torch_ms": times_2d["sharpen5"]["torch"],
+            "copy_ms": times_2d["sharpen5"]["copy"],
+            "ms_gauss5": times_2d["gauss5"][kind]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,12 +14,15 @@ import torch
 
 from warmup_fir_filter_tpu.kernels.dispatch import (
     fir1d_fixed_rows_auto as jax_auto,
+    fir2d_fixed_auto as jax_auto_2d,
 )
 from warmup_fir_filter_tpu.models.golden import fir1d_fixed_golden_rows
+from warmup_fir_filter_tpu.ops.fir2d import fir2d_fixed_golden
 from warmup_fir_filter_tpu.ops.qformat import QFormat
 from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.kernels import (
     dispatch,
+    fir2d,
     fir_band,
     fir_direct,
     fir_window,
@@ -31,6 +34,7 @@ REPO_ROOT = Path(__file__).resolve().parent.parent
 #: Modules of the JAX package that import jax; the port must import none.
 JAX_MODULES = ("jax", "jaxlib", "warmup_fir_filter_tpu.kernels",
                "warmup_fir_filter_tpu.ops.fir1d",
+               "warmup_fir_filter_tpu.ops.fir2d",
                "warmup_fir_filter_tpu.ops.streaming",
                "warmup_fir_filter_tpu.parallel",
                "warmup_fir_filter_tpu.utils.benchmarking")
@@ -111,9 +115,49 @@ def test_auto_wide_accumulator_goes_to_golden(rng):
         fir1d_fixed_golden_rows(x, h, qf))
 
 
+@pytest.mark.parametrize("shape,path", [((5, 5), "oframe"),
+                                        ((3, 129), "frame"),
+                                        ((3, 258), "torch"),
+                                        ((2, 1), "frame")])
+def test_auto_2d_matches_jax_auto(monkeypatch, rng, shape, path):
+    """The JAX package's 2-D choice (``dispatch.py:67-85``): the overlapped
+    frame for 0 < Lc - 1 <= 96, the plain frame up to Lc = 257, the int32
+    path beyond."""
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*args):
+            calls.append(name)
+            return fn(*args)
+        return wrapped
+
+    monkeypatch.setattr(fir2d, "fir2d_frame_plain",
+                        spy("frame", fir2d.fir2d_frame_plain))
+    monkeypatch.setattr(fir2d, "fir2d_oframe_plain",
+                        spy("oframe", fir2d.fir2d_oframe_plain))
+    monkeypatch.setattr(dispatch, "fir2d_fixed_torch",
+                        spy("torch", dispatch.fir2d_fixed_torch))
+    qf = QFormat(16, 12, 24)
+    h = rng.uniform(-0.05, 0.05, size=shape)
+    x = rng.integers(0, 256, size=(24, 300), dtype=np.uint8)
+    got = dispatch.fir2d_fixed_auto(torch.from_numpy(x), h, qf)
+    assert calls == [path]
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jax_auto_2d(x, h, qf)))
+    np.testing.assert_array_equal(got.numpy(), fir2d_fixed_golden(x, h, qf))
+
+
+def test_auto_2d_wide_accumulator_raises():
+    x = torch.zeros((8, 8), dtype=torch.uint8)
+    for h in (np.ones((3, 3)) / 9, np.ones((3, 258)) / 774):
+        with pytest.raises(ValueError, match="acc_bits=48"):
+            dispatch.fir2d_fixed_auto(x, h, QFormat(32, 12, 48))
+
+
 def _launch_counts():
     return (fir_band.fir_band.launches, fir_direct.fir_direct.launches,
-            fir_window.fir_window.launches)
+            fir_window.fir_window.launches, fir2d.fir2d_frame.launches,
+            fir2d.fir2d_oframe.launches, fir2d.fir2d_bf16.launches)
 
 
 def test_cpu_tensors_launch_no_kernel(rng):
@@ -122,6 +166,8 @@ def test_cpu_tensors_launch_no_kernel(rng):
     dispatch.fir1d_fixed_rows_auto(x, [0.25, 0.5, 0.25])
     dispatch.fir1d_fixed_rows_auto(x, np.ones(300) / 300)
     fir_direct.fir_direct(x, [0.25, 0.5, 0.25])
+    dispatch.fir2d_fixed_auto(x, np.ones((3, 3)) / 9)
+    dispatch.fir2d_fixed_auto(x, np.ones((3, 129)) / 387)
     assert _launch_counts() == before
 
 
@@ -225,13 +271,13 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
     calls = (tmp_path / "bin" / "calls.log").read_text().splitlines()
     sources = _build.kernel_sources()
     compiles = [c for c in calls if " -c " in c]
-    assert len(compiles) == len(sources) == 4
+    assert len(compiles) == len(sources) == 6
     assert all(str(src) in " ".join(compiles) for src in sources)
     assert len(calls) == len(sources) + 1 and "-shared" in calls[-1]
     assert sorted(p.name for p in library.parent.iterdir()) == [
         _build.LIBRARY_NAME, f"{_build.LIBRARY_NAME}.sha256"]
     assert _build.build(tmp_path / "build") == library  # up to date
-    assert len((tmp_path / "bin" / "calls.log").read_text().splitlines()) == 5
+    assert len((tmp_path / "bin" / "calls.log").read_text().splitlines()) == 7
 
 
 def test_source_digest_follows_sources(monkeypatch, tmp_path):
@@ -242,10 +288,12 @@ def test_source_digest_follows_sources(monkeypatch, tmp_path):
     (tmp_path / "fir_band.cu").write_text("// changed\n")
     assert _build.source_digest() != first
     assert [p.name for p in _build.kernel_sources()] == [
-        "fir_band.cu", "fir_direct.cu", "fir_window.cu", "window_copy.cu"]
-    first = _build.source_digest()
-    (tmp_path / "wft_window.cuh").write_text("// changed\n")
-    assert _build.source_digest() != first
+        "fir2d_bf16.cu", "fir2d_frame.cu", "fir_band.cu", "fir_direct.cu",
+        "fir_window.cu", "window_copy.cu"]
+    for header in ("wft_window.cuh", "wft_fir2d.cuh"):
+        first = _build.source_digest()
+        (tmp_path / header).write_text("// changed\n")
+        assert _build.source_digest() != first
 
 
 def test_port_imports_no_jax_module():
@@ -256,8 +304,10 @@ def test_port_imports_no_jax_module():
             .with_suffix("").parts)
         for p in (REPO_ROOT / "warmup_fir_filter_tpu_torch").rglob("*.py")
         if p.name not in ("__init__.py", "__main__.py"))
-    assert {"warmup_fir_filter_tpu_torch.kernels.fir_window",
+    assert {"warmup_fir_filter_tpu_torch.kernels.fir2d",
+            "warmup_fir_filter_tpu_torch.kernels.fir_window",
             "warmup_fir_filter_tpu_torch.kernels.window_copy",
+            "warmup_fir_filter_tpu_torch.ops.fir2d",
             "warmup_fir_filter_tpu_torch.ops.streaming"} <= set(modules)
     code = BLOCK_JAX + (
         "import importlib\n"

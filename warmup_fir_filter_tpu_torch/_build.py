@@ -44,6 +44,14 @@ NVCC_FLAGS = (
 _VOIDP = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _INT = ctypes.c_int
+#: Kernels E and F: x, y, hp, wp, digits (device), plane table (device),
+#: planes, taps_r, taps_c, t0, core_h, core_w, bias, needs_wrap, frac_bits,
+#: acc_bits, stream.
+_FIR2D_INT = (
+    [_VOIDP, _VOIDP, _LL, _LL, _VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT,
+     _INT, ctypes.c_uint32, _INT, _INT, _INT, _VOIDP],
+    _INT,
+)
 #: C signature of each entry point: (argtypes, restype).
 _SIGNATURES = {
     # x, y, rows, n, digits, planes, taps, exponents (host), bias,
@@ -69,6 +77,15 @@ _SIGNATURES = {
     # x, carry_ext, out, channels, total, sub, stream
     "wft_window_rows": (
         [_VOIDP, _VOIDP, _VOIDP, _LL, _LL, _LL, _VOIDP],
+        _INT,
+    ),
+    "wft_fir2d_frame": _FIR2D_INT,
+    "wft_fir2d_oframe": _FIR2D_INT,
+    # x, y, hp, wp, row taps (device f32), row table (device), rows, taps_r,
+    # taps_c, t0, core_h, core_w, frac_bits, stream
+    "wft_fir2d_bf16": (
+        [_VOIDP, _VOIDP, _LL, _LL, _VOIDP, _VOIDP, _INT, _INT, _INT, _INT,
+         _INT, _INT, _INT, _VOIDP],
         _INT,
     ),
     "wft_error_string": ([_INT], ctypes.c_char_p),

@@ -21,6 +21,13 @@
 #define WFT_INLINE inline
 #endif
 
+// Full unrolling keeps the per-row accumulator arrays in registers.
+#if defined(__CUDACC__)
+#define WFT_UNROLL _Pragma("unroll")
+#else
+#define WFT_UNROLL
+#endif
+
 namespace wft {
 
 // Requires 1 <= frac_bits <= 31 and 1 <= acc_bits <= 32 (the wrappers check).

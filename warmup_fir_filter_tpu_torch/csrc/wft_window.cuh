@@ -11,13 +11,6 @@
 
 #include "wft_fixed.cuh"
 
-// Full unrolling keeps the per-row accumulator arrays in registers.
-#if defined(__CUDACC__)
-#define WFT_UNROLL _Pragma("unroll")
-#else
-#define WFT_UNROLL
-#endif
-
 namespace wft {
 
 // Kernel C tile: each of kWindowThreads threads computes 4 adjacent output

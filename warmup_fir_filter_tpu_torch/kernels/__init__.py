@@ -8,5 +8,9 @@
                    windowed band kernel K3 (``fir_mxu.py``), L ≤ 4,096;
 - ``window_copy``  kernel D (``csrc/window_copy.cu``), ports the TPU
                    window-copy kernel K5 (``window_copy.py``);
-- ``dispatch``     ``prepare_fixed_fir`` and ``fir1d_fixed_rows_auto``.
+- ``fir2d``        kernels E, F and G (``csrc/fir2d_frame.cu``,
+                   ``csrc/fir2d_bf16.cu``), port the TPU 2-D frame kernels
+                   K6/K7 and the bf16 kernel K8 (``fir2d_mxu.py``);
+- ``dispatch``     ``prepare_fixed_fir``, ``fir1d_fixed_rows_auto`` and
+                   ``fir2d_fixed_auto``.
 """

@@ -20,7 +20,12 @@ for callers that filter many blocks (``ops/streaming.py``); a module's
 forward takes a CPU or a CUDA tensor on the module's device.  On a CUDA
 tensor the chosen kernel launches or raises; on a CPU tensor the same
 choice runs its plain version.  Nothing falls back from one to the other.
-``fir2d_fixed_auto`` is not ported yet.
+
+:func:`fir2d_fixed_auto` is the 2-D counterpart (``dispatch.py:67-85``):
+an (Lr, Lc) filter with Lc ≤ 257 goes to ``fir2d_fixed_mxu``, whose
+``"auto"`` layout takes the overlapped frame (kernel F, K7) for
+``0 < Lc - 1 ≤ 96`` and the plain frame (kernel E, K6) otherwise; any other
+filter goes to ``fir2d_fixed_torch``, the int32 path.
 """
 
 from __future__ import annotations
@@ -29,12 +34,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from warmup_fir_filter_tpu_torch.kernels.fir2d import fir2d_fixed_mxu
 from warmup_fir_filter_tpu_torch.kernels.fir_band import MAX_TAPS, FixedFir1d
 from warmup_fir_filter_tpu_torch.kernels.fir_direct import FixedFirDirect
 from warmup_fir_filter_tpu_torch.kernels.fir_window import (
     MAX_TAPS as MAX_TAPS_WINDOWED,
     FixedFirWindow,
 )
+from warmup_fir_filter_tpu_torch.ops.fir2d import fir2d_fixed_torch
 from warmup_fir_filter_tpu_torch.reference import (
     QFormat,
     fir1d_fixed_golden_rows,
@@ -69,3 +76,14 @@ def fir1d_fixed_rows_auto(x_u8: torch.Tensor, h,
         return torch.from_numpy(
             fir1d_fixed_golden_rows(x_u8.numpy(), np.asarray(h), qformat))
     return prepare_fixed_fir(h, qformat, x_u8.device)(x_u8)
+
+
+def fir2d_fixed_auto(x_u8: torch.Tensor, h,
+                     qformat: QFormat = QFormat()) -> torch.Tensor:
+    """Bit-exact fixed 2-D FIR over an (H, W) uint8 image on
+    ``x_u8.device``: the frame kernels when the column taps fit a band
+    (Lc ≤ 257), else the int32 path.  Raises for ``acc_bits > 32``."""
+    h = np.asarray(h)
+    if h.ndim == 2 and h.shape[1] <= MAX_TAPS:
+        return fir2d_fixed_mxu(x_u8, h, qformat)
+    return fir2d_fixed_torch(x_u8, h, qformat)

@@ -8,15 +8,20 @@ Q-format arithmetic, validation, the filter banks, the bit-exact golden
 oracle, the artifact store, stages 1-2, the compare report, the analysis
 docs, image restore, the synthetic corpus, image IO, status logging and
 the stage timer.  Nothing under ``kernels/``, ``ops/fir1d.py``,
-``ops/streaming.py``, ``parallel/`` or ``utils/benchmarking.py`` may be
-imported here: those import jax.
+``ops/fir2d.py``, ``ops/streaming.py``, ``parallel/`` or
+``utils/benchmarking.py`` may be imported here: those import jax.
 """
 
 from __future__ import annotations
 
 from warmup_fir_filter_tpu.models.filters import FILTER_BANKS, filter_bank
 from warmup_fir_filter_tpu.models.golden import fir1d_fixed_golden_rows
-from warmup_fir_filter_tpu.ops.qformat import QFormat
+from warmup_fir_filter_tpu.ops.qformat import (
+    QFormat,
+    bias_round_shift_np,
+    saturate_pixel_np,
+    wrap_to_acc_bits_np,
+)
 from warmup_fir_filter_tpu.pipeline.analysis import (
     generate_analysis_doc,
     generate_comparison_doc,
@@ -46,6 +51,7 @@ __all__ = [
     "ArtifactStore",
     "QFormat",
     "StageTimer",
+    "bias_round_shift_np",
     "filter_bank",
     "fir1d_fixed_golden_rows",
     "generate_analysis_doc",
@@ -57,8 +63,10 @@ __all__ = [
     "render_image",
     "restore_images",
     "save_gray_png",
+    "saturate_pixel_np",
     "save_npy",
     "stage_line",
     "synthesize_corpus",
+    "wrap_to_acc_bits_np",
     "write_json",
 ]
