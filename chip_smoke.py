@@ -53,15 +53,35 @@ of them pass:
             per-block split into kernel D, the FIR and the checksums; at
             8192² kernels E, F and G, their plain versions,
             ``fir2d_fixed_torch`` and a frame ``copy_``.
+10. chain   kernels H (float FIR), I (polyphase resampler) and J (fused
+    kernels chain) against their plain versions, which run in float64 on
+            the card: H and I over taps × rates × ragged widths and at the
+            main path's shapes, SNR >= 120 dB; J over the six geometries
+            of tests/test_chain_fused.py on FM signals at ragged lengths,
+            SNR >= 95 dB in "highest" and > 40 dB against the f32 chain
+            in "bf16".
+11. config  BASELINE config 5 at bench_configs.py's size (16 channels ×
+    5       2,000,000 complex f32 samples, seeded as there, and an FM
+            signal of the same shape): ``chain_forward`` "auto" through
+            kernel J alone, the staged "mxu" path through kernels I and H
+            alone, fused within 90 dB SNR of staged, the 2-channel
+            message recovery of bench_configs.py:233-249 (corr > 0.99);
+            then CUDA-event medians of kernel I on 32 × 2 M, kernel H on
+            32 × 1,333,334, the demod, kernel J in both modes, the plain
+            versions, ``F.conv1d`` of the 63 taps (TF32 off), the two
+            chains end to end and a ``copy_`` of the input.
 
-Launch counts are zeroed just before each main path (phases 4-8) and read
-just after it.  Then one JSON line for the kernels, the card
-line, and as the last line ``{"ok": true, "device": {...}}``.  Inputs
+Launch counts are zeroed just before each main path (phases 4-8 and 11)
+and read just after it.  Then one JSON line for the kernels (each with its
+time, its plain version's, its bound at the card's published peaks and,
+where one PyTorch call computes the same function, that call's time), the
+card line, and as the last line ``{"ok": true, "device": {...}}``.  Inputs
 come from numpy/torch generators seeded with ``SEED``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
 import statistics
@@ -72,9 +92,15 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.cli import main as cli_main
+from warmup_fir_filter_tpu_torch.kernels.chain_fused import (
+    FusedChain,
+    chain_fused,
+    chain_fused_plain,
+)
 from warmup_fir_filter_tpu_torch.kernels.dispatch import fir2d_fixed_auto
 from warmup_fir_filter_tpu_torch.kernels.fir2d import (
     FixedFir2d,
@@ -101,17 +127,32 @@ from warmup_fir_filter_tpu_torch.kernels.fir_direct import (
     FixedFirDirect,
     fir_direct,
 )
+from warmup_fir_filter_tpu_torch.kernels.fir_float import (
+    FloatFir1d,
+    fir_float,
+    fir_float_plain,
+)
 from warmup_fir_filter_tpu_torch.kernels.fir_window import (
     FixedFirWindow,
     fir_window,
     fir_window_plain,
 )
+from warmup_fir_filter_tpu_torch.kernels.resample import (
+    PolyphaseResampler,
+    resample,
+    resample_plain,
+)
 from warmup_fir_filter_tpu_torch.kernels.window_copy import (
     window_rows,
     window_rows_plain,
 )
+from warmup_fir_filter_tpu_torch.models.chain import ChainConfig, chain_forward
+from warmup_fir_filter_tpu_torch.models.filters import FILTER_BANKS
+from warmup_fir_filter_tpu_torch.models.golden import fir1d_fixed_golden_rows
+from warmup_fir_filter_tpu_torch.ops.demod import fm_demodulate, fm_modulate
 from warmup_fir_filter_tpu_torch.ops.fir1d import (
     fir1d_fixed_rows_torch,
+    fir1d_ideal_rows_torch,
     fixed_fir_prehaloed_i32,
 )
 from warmup_fir_filter_tpu_torch.ops.fir2d import (
@@ -121,6 +162,8 @@ from warmup_fir_filter_tpu_torch.ops.fir2d import (
     fir2d_ideal_golden,
     fir2d_ideal_torch,
 )
+from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
+from warmup_fir_filter_tpu_torch.ops.resample import _plan, design_lowpass
 from warmup_fir_filter_tpu_torch.ops.streaming import (
     Fir1DStream,
     FirStreamState,
@@ -131,16 +174,15 @@ from warmup_fir_filter_tpu_torch.ops.streaming import (
     pick_window_split,
     stream_scanned,
 )
-from warmup_fir_filter_tpu_torch.reference import (
-    FILTER_BANKS,
+from warmup_fir_filter_tpu_torch.pipeline.artifacts import (
     ArtifactStore,
-    QFormat,
-    fir1d_fixed_golden_rows,
-    render_image,
-    save_gray_png,
     save_npy,
     write_json,
 )
+from warmup_fir_filter_tpu_torch.pipeline.synthetic import (
+    _render as render_image,
+)
+from warmup_fir_filter_tpu_torch.utils.imageio import save_gray_png
 
 SEED = 20261016
 REPO_ROOT = Path(__file__).resolve().parent
@@ -217,8 +259,33 @@ FRAME_SEED = 20260819
 FRAME_STEPS = 5
 FRAME_TIMING_LAUNCHES = 10
 PLAIN_2D_CALLS = 2
+#: Kernels H and I's grid: (taps, up, down) over ragged widths, u8 and f32
+#: rows for H.
+FLOAT_TAPS = (1, 2, 5, 63, 64, 129, 257)
+FLOAT_WIDTHS = (1, 1023, 1025, 40001)
+RESAMPLE_RATES = ((2, 3, 63), (4, 3, 47), (2, 1, 33), (8, 5, 63), (1, 2, 31),
+                  (2, 3, 95), (2, 3, 160))
+RESAMPLE_WIDTHS = (1, 1535, 1537, 40001)
+#: Kernel J's geometries (up, down, rs_taps, ch_taps, channels), those of
+#: tests/test_chain_fused.py:122-129, at lengths past two tiles, ragged.
+CHAIN_GEOMETRIES = ((2, 3, 63, 63, 8), (4, 3, 47, 31, 8), (2, 1, 33, 97, 8),
+                    (8, 5, 63, 129, 16), (1, 2, 31, 63, 8),
+                    (2, 3, 95, 63, 24))
+#: BASELINE config 5 as bench_configs.py:283-287 runs it: 16 channels ×
+#: 2,000,000 complex f32 samples from seed 5.
+CONFIG5_CHANNELS = 16
+CONFIG5_TIME = 2_000_000
+CONFIG5_SEED = 5
+CHAIN_TIMING_REPS = 7
+CHAIN_TIMING_LAUNCHES = 5
+PLAIN_CHAIN_CALLS = 2
+#: Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates):
+#: device memory bytes/s and operations/s by type, at the 700 W limit.
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"f32": 67e12, "int8": 1979e12}
 KERNELS = ("fir_band", "fir_direct", "fir_window", "window_rows",
-           "fir2d_frame", "fir2d_oframe", "fir2d_bf16")
+           "fir2d_frame", "fir2d_oframe", "fir2d_bf16", "fir_float",
+           "resample", "chain_fused")
 
 
 def phase(name: str) -> None:
@@ -234,29 +301,38 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def design_lowpass(num_taps: int, cutoff: float) -> np.ndarray:
-    """Hamming windowed-sinc low-pass, unit DC gain: the formula of
-    ``warmup_fir_filter_tpu/ops/resample.py:43-57`` (which imports jax)."""
-    n = np.arange(num_taps, dtype=np.float64) - (num_taps - 1) / 2.0
-    h = np.sinc(cutoff * n) * cutoff
-    h *= 0.54 - 0.46 * np.cos(2.0 * np.pi * np.arange(num_taps)
-                              / (num_taps - 1))
-    return h / h.sum()
-
-
 def launch_counts() -> dict:
     return {"fir_band": fir_band.launches, "fir_direct": fir_direct.launches,
             "fir_window": fir_window.launches,
             "window_rows": window_rows.launches,
             "fir2d_frame": fir2d_frame.launches,
             "fir2d_oframe": fir2d_oframe.launches,
-            "fir2d_bf16": fir2d_bf16.launches}
+            "fir2d_bf16": fir2d_bf16.launches,
+            "fir_float": fir_float.launches, "resample": resample.launches,
+            "chain_fused": chain_fused.launches}
 
 
 def reset_launch_counts() -> None:
     fir_band.launches = fir_direct.launches = 0
     fir_window.launches = window_rows.launches = 0
     fir2d_frame.launches = fir2d_oframe.launches = fir2d_bf16.launches = 0
+    fir_float.launches = resample.launches = chain_fused.launches = 0
+
+
+def bound(nbytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of ``nbytes`` at the
+    published memory rate and ``ops`` at the published peak for their
+    type."""
+    by_bytes = nbytes / PEAK_BYTES * 1e3
+    by_ops = ops / PEAK_OPS[kind] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def finite(value: float) -> float | None:
+    """``value``, or None where it is infinite (strict JSON has no inf)."""
+    return value if np.isfinite(value) else None
 
 
 def only(counts: dict, name: str, at_least: int, label: str) -> None:
@@ -617,6 +693,7 @@ def time_2d(card: str) -> dict:
         runs, plain_runs = {}, {}
         for kind, (kernel, plain) in KERNELS_2D.items():
             frame, core, _ = frame_of(kind, x, h.shape)
+            out.setdefault("frame_numel", {})[kind] = frame.numel()
             dst = torch.empty_like(frame)
             runs[kind] = (lambda k=kernel, f=frame, c=core, d=dst:
                           k(f, fir, c, out=d))
@@ -990,6 +1067,7 @@ def time_stream_step(card: str, sustained_ms: float) -> dict:
     split["step"] = statistics.median(
         ev[0].elapsed_time(ev[4]) for ev in events[STEP_SKIP:])
     x = block_fn(0)
+    split["bytes"] = float(x.numel() + carry.numel() + win.numel())
     split["window_rows_plain"] = median_ms(
         {"plain": lambda: window_rows_plain(x, carry, sub, g)},
         TIMING_REPS, TIMING_LAUNCHES)["plain"][0]
@@ -1003,14 +1081,292 @@ def time_stream_step(card: str, sustained_ms: float) -> dict:
           flush=True)
     return split
 
+def snr_on_card(reference: torch.Tensor, test: torch.Tensor) -> float:
+    """``ops.fftfilt.snr_db`` computed on the card, in float64."""
+    ref = reference.to(torch.float64)
+    noise = float((test.to(torch.float64) - ref).square().mean())
+    power = float(ref.square().mean())
+    if noise == 0.0:
+        return float("inf")
+    return 10.0 * float(np.log10(power / noise)) if power > 0 else -np.inf
+
+
+class FloatAgreement:
+    """Counts float kernel-vs-plain comparisons, the largest |difference|
+    and the smallest SNR against the float64 plain version."""
+
+    def __init__(self):
+        self.count = 0
+        self.max_abs_err = 0.0
+        self.min_snr_db = float("inf")
+
+    def check(self, got: torch.Tensor, want: torch.Tensor, label: str,
+              min_snr_db: float) -> None:
+        if got.shape != want.shape:
+            raise AssertionError(f"{label}: shape {tuple(got.shape)} != "
+                                 f"{tuple(want.shape)}")
+        err = (float((got.to(torch.float64) - want).abs().max())
+               if got.numel() else 0.0)
+        snr = snr_on_card(want, got)
+        self.count += 1
+        self.max_abs_err = max(self.max_abs_err, err)
+        self.min_snr_db = min(self.min_snr_db, snr)
+        if not snr >= min_snr_db:
+            raise AssertionError(f"{label}: kernel vs plain SNR {snr:.1f} dB "
+                                 f"< {min_snr_db} dB (max |diff| {err:.3g})")
+
+
+def fm_planes(rng: np.random.Generator, channels: int, time_len: int,
+              k_f: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """FM-modulated I/Q planes on the card, with the band-limited message
+    of tests/test_demod_chain.py:198-203 (white noise low-passed at 0.05,
+    scaled to a peak of 1), which its bf16 bound assumes."""
+    msg = fir1d_ideal_rows_torch(torch.from_numpy(rng.standard_normal(
+        (channels, time_len)).astype(np.float32)).cuda(),
+        design_lowpass(63, 0.05))
+    msg = (msg / msg.abs().max()).cpu().numpy()
+    re, im = fm_modulate(msg, k_f)
+    return (torch.from_numpy(re.astype(np.float32)).cuda(),
+            torch.from_numpy(im.astype(np.float32)).cuda())
+
+
+def chain_config(up: int, down: int, rs_taps: int, ch_taps: int,
+                 **kwargs) -> ChainConfig:
+    return ChainConfig(resample_up=up, resample_down=down,
+                       resample_taps=rs_taps, channelizer_taps=ch_taps,
+                       **kwargs)
+
+
+def check_chain_kernels(agree: dict, fm: tuple) -> None:
+    """Kernels H, I and J against their float64 plain versions on the
+    card: H and I >= 120 dB, J >= 95 dB in "highest", and in "bf16"
+    > 40 dB against the f32 chain's plain version (> 60 dB against its
+    own), over the grids and at the main path's shapes."""
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for num_taps in FLOAT_TAPS:
+        fir = FloatFir1d(rng.standard_normal(num_taps) / np.sqrt(num_taps),
+                         "cuda")
+        for n in FLOAT_WIDTHS:
+            for x in (torch.from_numpy(rng.integers(
+                    0, 256, size=(ROWS, n), dtype=np.uint8)).cuda(),
+                      torch.randn((ROWS, n), device="cuda", generator=gen)):
+                agree["fir_float"].check(
+                    fir_float(x, fir), fir_float_plain(x, fir),
+                    f"fir_float L={num_taps} N={n} {x.dtype}", 120.0)
+    for up, down, num_taps in RESAMPLE_RATES:
+        rs = PolyphaseResampler(design_lowpass(
+            num_taps, 0.9 / max(up, down), gain=up), up, down, "cuda")
+        for n in RESAMPLE_WIDTHS:
+            x = torch.randn((ROWS, n), device="cuda", generator=gen)
+            agree["resample"].check(resample(x, rs), resample_plain(x, rs),
+                                    f"resample {up}/{down} L={num_taps} "
+                                    f"N={n}", 120.0)
+    for up, down, rs_taps, ch_taps, channels in CHAIN_GEOMETRIES:
+        cfg = chain_config(up, down, rs_taps, ch_taps)
+        re, im = fm_planes(rng, channels, 3 * 1024 * down // up + 333,
+                           cfg.demod_k_f)
+        check_chain_modes(agree, re, im, cfg,
+                          f"chain {up}/{down} {rs_taps}+{ch_taps} "
+                          f"C={channels}")
+
+    # The main path's shapes: config 5's 32 × 2 M resample, 32 × 1.33 M
+    # channelizer and 16 × 2 M chain.
+    cfg = ChainConfig()
+    x = torch.cat(fm, dim=0)
+    rs = PolyphaseResampler(cfg.resample_filter(), 2, 3, "cuda")
+    both = resample(x, rs)
+    agree["resample"].check(both, resample_plain(x, rs),
+                            f"resample main {tuple(x.shape)}", 120.0)
+    fir = FloatFir1d(cfg.channelizer_filter(), "cuda")
+    agree["fir_float"].check(fir_float(both, fir), fir_float_plain(both, fir),
+                             f"fir_float main {tuple(both.shape)}", 120.0)
+    del x, both
+    check_chain_modes(agree, *fm, cfg, "chain main")
+    torch.cuda.synchronize()
+    print("[chip_smoke] chain kernels: " + ", ".join(
+        f"{name} {agree[name].count} comparisons (min SNR "
+        f"{agree[name].min_snr_db:.1f} dB, max |diff| "
+        f"{agree[name].max_abs_err:.3g})"
+        for name in ("fir_float", "resample", "chain_fused",
+                     "chain_fused_bf16", "chain_fused_bf16_own")), flush=True)
+
+
+def check_chain_modes(agree: dict, re: torch.Tensor, im: torch.Tensor,
+                      cfg: ChainConfig, label: str) -> None:
+    """Kernel J in "highest" and "bf16" against the plain versions."""
+    args = (cfg.resample_filter(), cfg.channelizer_filter(), cfg.resample_up,
+            cfg.resample_down, cfg.demod_k_f)
+    chain = FusedChain(*args, precision="highest", device="cuda")
+    want = chain_fused_plain(re, im, chain)
+    got = chain_fused(re, im, chain)
+    agree["chain_fused"].check(got, want, f"{label} highest", 95.0)
+    if float(got[:, 0].abs().max()) != 0.0:
+        raise AssertionError(f"{label}: message 0 is not 0")
+    chain = FusedChain(*args, precision="bf16", device="cuda")
+    got = chain_fused(re, im, chain)
+    agree["chain_fused_bf16"].check(got, want, f"{label} bf16 vs f32", 40.0)
+    agree["chain_fused_bf16_own"].check(got, chain_fused_plain(re, im, chain),
+                                        f"{label} bf16", 60.0)
+
+
+def run_config5(fm: tuple) -> tuple[dict, dict]:
+    """BASELINE config 5 at full size through ``chain_forward``: "auto"
+    through kernel J alone, staged "mxu" through kernels I and H alone, on
+    bench_configs.py's seeded noise planes and on FM planes (fused within
+    90 dB SNR of staged there), then the 2-channel message recovery."""
+    cfg = ChainConfig()
+    staged_cfg = dataclasses.replace(cfg, channelizer_backend="mxu")
+    rng = np.random.default_rng(CONFIG5_SEED)
+    noise = tuple(torch.from_numpy(rng.standard_normal(
+        (CONFIG5_CHANNELS, CONFIG5_TIME)).astype(np.float32)).cuda()
+        for _ in range(2))
+    out_len = -(-CONFIG5_TIME * cfg.resample_up // cfg.resample_down)
+    counts, outs = {}, {}
+    for signal, planes in (("noise", noise), ("fm", fm)):
+        for path, config in (("auto", cfg), ("staged", staged_cfg)):
+            run = f"config5_{signal}_{path}"
+            reset_launch_counts()
+            outs[run] = y = chain_forward(*planes, config)
+            torch.cuda.synchronize()
+            counts[run] = launch_counts()
+            if tuple(y.shape) != (CONFIG5_CHANNELS, out_len) or \
+                    not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"{run}: shape {tuple(y.shape)} or "
+                                     "non-finite messages")
+        only(counts[f"config5_{signal}_auto"], "chain_fused", 1,
+             f"config 5 {signal} auto")
+        staged = counts[f"config5_{signal}_staged"]
+        if staged["resample"] < 1 or staged["fir_float"] < 1 or any(
+                staged[k] for k in KERNELS if k not in ("resample",
+                                                        "fir_float")):
+            raise AssertionError(f"config 5 {signal} staged launches "
+                                 f"{staged}: expected kernels I and H only")
+    result = {
+        "fused_vs_staged_snr_db_fm": snr_on_card(outs["config5_fm_staged"],
+                                                 outs["config5_fm_auto"]),
+        "fused_vs_staged_snr_db_noise": snr_on_card(
+            outs["config5_noise_staged"], outs["config5_noise_auto"]),
+    }
+    del outs
+
+    # bench_configs.py:233-249: two tones, recovered at the output rate.
+    t = np.arange(200_000)
+    message = np.stack([0.4 * np.cos(2 * np.pi * 0.001 * t),
+                        0.3 * np.sin(2 * np.pi * 0.0015 * t)])
+    re, im = fm_modulate(message, cfg.demod_k_f)
+    reset_launch_counts()
+    out = chain_forward(torch.from_numpy(re.astype(np.float32)).cuda(),
+                        torch.from_numpy(im.astype(np.float32)).cuda(), cfg)
+    torch.cuda.synchronize()
+    counts["config5_message"] = launch_counts()
+    out = out.cpu().numpy().astype(np.float64)
+    expected = 0.4 * np.cos(2 * np.pi * 0.001 * np.arange(out.shape[1]) * 1.5)
+    core = slice(300, -300)
+    result["message_corr"] = float(np.corrcoef(out[0, core],
+                                               expected[core])[0, 1])
+    result["launches"] = counts
+    print(f"[chip_smoke] config 5 {json.dumps(result)}", flush=True)
+    if not (result["fused_vs_staged_snr_db_fm"] > 90.0
+            and result["message_corr"] > 0.99
+            and counts["config5_message"]["resample"] >= 1
+            and counts["config5_message"]["fir_float"] >= 1):
+        raise AssertionError(f"config 5 failed a gate: {result}")
+    return counts, result
+
+
+def time_chain(card: str, fm: tuple) -> dict:
+    """CUDA-event medians at config 5's shapes: kernel I on the stacked
+    32 × 2 M planes, kernel H on the 32 × 1,333,334 resampled planes, the
+    demod, kernel J on 16 × 2 M in both modes, their plain versions,
+    ``F.conv1d`` of the channelizer's taps (TF32 off: the same f32
+    function as kernel H), both chains end to end through
+    ``chain_forward`` and a ``copy_`` of the stacked input."""
+    cfg = ChainConfig()
+    re, im = fm
+    x = torch.cat([re, im], dim=0)
+    h_rs, h_ch = cfg.resample_filter(), cfg.channelizer_filter()
+    rs = PolyphaseResampler(h_rs, 2, 3, "cuda")
+    both = resample(x, rs)
+    fir = FloatFir1d(h_ch, "cuda")
+    ch = fir_float(both, fir)
+    re_ch, im_ch = ch[:CONFIG5_CHANNELS], ch[CONFIG5_CHANNELS:]
+    chain = FusedChain(h_rs, h_ch, 2, 3, cfg.demod_k_f, precision="highest",
+                       device="cuda")
+    chain_bf16 = FusedChain(h_rs, h_ch, 2, 3, cfg.demod_k_f,
+                            precision="bf16", device="cuda")
+    re_bf16, im_bf16 = re.to(torch.bfloat16), im.to(torch.bfloat16)
+    left = h_ch.size - 1 - h_ch.size // 2
+    weight = torch.as_tensor(h_ch[::-1].copy(), dtype=torch.float32,
+                             device="cuda").view(1, 1, -1)
+    conv = F.conv1d(both.unsqueeze(1), weight, padding=left).squeeze(1)
+    conv_snr = snr_on_card(fir_float_plain(both, fir), conv)
+    if not conv_snr >= 100.0:
+        raise AssertionError(f"F.conv1d is not the channelizer's function "
+                             f"(SNR {conv_snr:.1f} dB against kernel H's "
+                             "plain version)")
+    copy_dst = torch.empty_like(x)
+    staged_cfg = dataclasses.replace(cfg, channelizer_backend="mxu")
+    runs = {
+        "resample": lambda: resample(x, rs),
+        "fir_float": lambda: fir_float(both, fir),
+        "demod": lambda: fm_demodulate(re_ch, im_ch, cfg.demod_k_f),
+        "chain_fused": lambda: chain_fused(re, im, chain),
+        "chain_fused_bf16": lambda: chain_fused(re_bf16, im_bf16, chain_bf16),
+        "conv1d": lambda: F.conv1d(both.unsqueeze(1), weight, padding=left),
+        "copy": lambda: copy_dst.copy_(x),
+    }
+    med = median_ms(runs, CHAIN_TIMING_REPS, CHAIN_TIMING_LAUNCHES)
+    med.update(median_ms({
+        "resample_plain": lambda: resample_plain(x, rs),
+        "fir_float_plain": lambda: fir_float_plain(both, fir),
+        "chain_fused_plain": lambda: chain_fused_plain(re, im, chain),
+        "chain_auto": lambda: chain_forward(re, im, cfg),
+        "chain_staged": lambda: chain_forward(re, im, staged_cfg),
+    }, 3, PLAIN_CHAIN_CALLS))
+    out_len = both.shape[1]
+    samples = CONFIG5_CHANNELS * out_len
+    for run, (m, lo, hi) in med.items():
+        rate = (f"{2 * x.numel() * 4 / m / 1e6:.1f} GB/s copied"
+                if run == "copy" else
+                f"{samples / m / 1e3:.1f} Mmessages/s (of config 5's chain)")
+        print(f"[chip_smoke] time chain {run}: median {m:.4f} ms (min "
+              f"{lo:.4f}, max {hi:.4f}) {rate} [{CONFIG5_CHANNELS} x "
+              f"{CONFIG5_TIME} complex f32, 2/3 x 63 + 63 taps; {card}]",
+              flush=True)
+    result = {run: m for run, (m, _, _) in med.items()}
+    result["conv1d_snr_db"] = conv_snr
+    # Work of each timed call, for its bound.
+    branch_nnz = (rs.taps != 0).sum(dim=1).cpu().numpy()
+    _, branch, _, _ = _plan(CONFIG5_TIME, 2, 3, h_rs.size)
+    rs_fmas = int(branch_nnz[branch].sum())  # per row
+    f32 = 4
+    result["work"] = {
+        "resample": (x.numel() * f32 + both.numel() * f32,
+                     2.0 * 2 * CONFIG5_CHANNELS * rs_fmas),
+        "fir_float": (2 * both.numel() * f32,
+                      2.0 * both.numel() * int(np.count_nonzero(h_ch))),
+        "demod": (3 * samples * f32, 0.0),
+        "chain_fused": (x.numel() * f32 + samples * f32,
+                        2.0 * 2 * CONFIG5_CHANNELS
+                        * (rs_fmas + out_len * int(np.count_nonzero(h_ch)))),
+    }
+    result["work"]["chain_fused_bf16"] = (
+        x.numel() * 2 + samples * f32, result["work"]["chain_fused"][1])
+    result["copy_bytes_per_s"] = 2 * x.numel() * f32 / (med["copy"][0] / 1e3)
+    return result
+
 
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    # Kernel G's plain version multiplies in f32 on the card: no TF32.
+    # Kernel G's plain version multiplies in f32 on the card, and the
+    # channelizer's yardstick F.conv1d must compute kernel H's f32
+    # function: no TF32 in either.
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"[chip_smoke] card: {card}", flush=True)
     print(f"[chip_smoke] python {sys.version.split()[0]}, torch "
@@ -1071,10 +1427,59 @@ def main() -> int:
     split = time_stream_step(card, sustained_ms)
     times_2d = time_2d(card)
 
+    phase("10 chain kernels vs plain")
+    cfg5 = ChainConfig()
+    fm = fm_planes(np.random.default_rng(CONFIG5_SEED + 1), CONFIG5_CHANNELS,
+                   CONFIG5_TIME, cfg5.demod_k_f)
+    chain_agree = {name: FloatAgreement() for name in (
+        "fir_float", "resample", "chain_fused", "chain_fused_bf16",
+        "chain_fused_bf16_own")}
+    check_chain_kernels(chain_agree, fm)
+
+    phase("11 config 5")
+    counts5, config5 = run_config5(fm)
+    launches.update(counts5)
+    times_chain = time_chain(card, fm)
+    del fm
+
     def counted(name: str) -> dict:
         runs = {f"launches_{run}": run_counts[name]
                 for run, run_counts in launches.items()}
         return {"launches": sum(runs.values()), **runs}
+
+    # Bounds of the timed calls, from this run's shapes and taps: each
+    # input byte read once, each output byte written once; the integer
+    # kernels' multiply-adds at the int8 rate, counting nonzero taps only.
+    qf = QFormat()
+    samples = BENCH_SHAPE[0] * BENCH_SHAPE[1]
+    nnz_5 = int(np.count_nonzero(qf.quantize_coeffs(
+        np.asarray(FILTER_BANKS[5]["sharpen"]))))
+    nnz_long = int(np.count_nonzero(qf.quantize_coeffs(
+        design_lowpass(LONG_TAPS, 0.2))))
+    nnz_2d = int(np.count_nonzero(qf.quantize_coeffs(
+        np.asarray(FILTER_BANK_2D["sharpen5"]))))
+    frame_samples = FRAME_SIZE * FRAME_SIZE
+    bounds = {
+        "fir_band": bound(2 * samples, 2 * nnz_5 * samples, "int8"),
+        "fir_direct": bound(2 * samples, 2 * nnz_5 * samples, "int8"),
+        "fir_window": bound(2 * samples, 2 * nnz_long * samples, "int8"),
+        "window_rows": bound(split["bytes"], 0, "int8"),
+        **{kind: bound(2 * times_2d["frame_numel"][kind],
+                       2 * nnz_2d * frame_samples,
+                       "f32" if kind == "fir2d_bf16" else "int8")
+           for kind in KERNELS_2D},
+        **{name: bound(*times_chain["work"][name], "f32")
+           for name in ("fir_float", "resample", "chain_fused",
+                        "chain_fused_bf16")},
+    }
+
+    def bounded(name: str) -> dict:
+        """The bound, the bytes it counts and those bytes' time at the
+        rate this run's ``copy_`` of the chain's input reached."""
+        b = bounds[name]
+        return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "bytes": b["bytes"], "bytes_at_copy_rate_ms":
+                b["bytes"] / times_chain["copy_bytes_per_s"] * 1e3}
 
     kernels = [
         {"name": "fir_band", "route": "cuda",
@@ -1085,6 +1490,7 @@ def main() -> int:
          "max_abs_err": agree["fir_band"].max_abs_err,
          "comparisons": agree["fir_band"].count,
          "ms": medians["fir_band"], "plain_ms": medians["torch_direct"],
+         **bounded("fir_band"), "library_ms": None,
          "ms_stream_windows": split["fir_band"]},
         {"name": "fir_direct", "route": "cuda",
          "source": "warmup_fir_filter_tpu_torch/csrc/fir_direct.cu",
@@ -1093,6 +1499,7 @@ def main() -> int:
          "max_abs_err": agree["fir_direct"].max_abs_err,
          "comparisons": agree["fir_direct"].count,
          "ms": medians["fir_direct"], "plain_ms": medians["torch_direct"],
+         **bounded("fir_direct"), "library_ms": None,
          **{f"ms_{taps}tap": long_taps[taps]["fir_direct"]
             for taps in LONG_TIMING_TAPS}},
         {"name": "fir_window", "route": "cuda",
@@ -1103,6 +1510,7 @@ def main() -> int:
          "comparisons": agree["fir_window"].count,
          "ms": long_taps[LONG_TAPS]["fir_window"],
          "plain_ms": long_taps[LONG_TAPS]["torch_direct"],
+         **bounded("fir_window"), "library_ms": None,
          **{f"{key}_{taps}tap": long_taps[taps][name]
             for taps in LONG_TIMING_TAPS
             for key, name in (("ms", "fir_window"),
@@ -1113,7 +1521,8 @@ def main() -> int:
          **counted("window_rows"),
          "max_abs_err": agree["window_rows"].max_abs_err,
          "comparisons": agree["window_rows"].count,
-         "ms": split["window_rows"], "plain_ms": split["window_rows_plain"]},
+         "ms": split["window_rows"], "plain_ms": split["window_rows_plain"],
+         **bounded("window_rows"), "library_ms": None},
     ]
     for kind, source, line in (("fir2d_frame", "fir2d_frame.cu", 173),
                                ("fir2d_oframe", "fir2d_frame.cu", 571),
@@ -1126,9 +1535,35 @@ def main() -> int:
             "comparisons": agree[kind].count,
             "ms": times_2d["sharpen5"][kind],
             "plain_ms": times_2d["sharpen5"][f"{kind}_plain"],
+            **bounded(kind), "library_ms": None,
             "torch_ms": times_2d["sharpen5"]["torch"],
             "copy_ms": times_2d["sharpen5"]["copy"],
             "ms_gauss5": times_2d["gauss5"][kind]})
+    for name, source, replaces, plain, library in (
+            ("fir_float", "fir_float.cu", "fir_float_mxu.py:106",
+             "fir_float_plain", "conv1d"),
+            ("resample", "resample.cu", "resample_mxu.py:96",
+             "resample_plain", None),
+            ("chain_fused", "chain_fused.cu", "chain_fused.py:133",
+             "chain_fused_plain", None)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"warmup_fir_filter_tpu_torch/csrc/{source}",
+            "replaces": f"warmup_fir_filter_tpu/kernels/{replaces}",
+            **counted(name), "max_abs_err": chain_agree[name].max_abs_err,
+            "min_snr_db": finite(chain_agree[name].min_snr_db),
+            "comparisons": chain_agree[name].count,
+            "ms": times_chain[name], "plain_ms": times_chain[plain],
+            **bounded(name),
+            "library_ms": times_chain[library] if library else None})
+    kernels[-1].update({
+        "ms_bf16": times_chain["chain_fused_bf16"],
+        "bound_ms_bf16": bounds["chain_fused_bf16"]["bound_ms"],
+        "min_snr_db_bf16_vs_f32": finite(
+            chain_agree["chain_fused_bf16"].min_snr_db),
+        "ms_chain_auto": times_chain["chain_auto"],
+        "ms_chain_staged": times_chain["chain_staged"],
+        "ms_demod": times_chain["demod"], "copy_ms": times_chain["copy"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """The port's kernel choice, its refusal to hide a missing device, the
-build's refusal to run without nvcc, and its JAX-free imports.
+build's refusal to run without nvcc, and its independence from JAX and
+from the JAX package.
 
 Fixed-point comparisons are ``np.array_equal`` (tolerance 0).
 """
@@ -18,7 +19,6 @@ from warmup_fir_filter_tpu.kernels.dispatch import (
 )
 from warmup_fir_filter_tpu.models.golden import fir1d_fixed_golden_rows
 from warmup_fir_filter_tpu.ops.fir2d import fir2d_fixed_golden
-from warmup_fir_filter_tpu.ops.qformat import QFormat
 from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.kernels import (
     dispatch,
@@ -27,19 +27,17 @@ from warmup_fir_filter_tpu_torch.kernels import (
     fir_direct,
     fir_window,
 )
+from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 from warmup_fir_filter_tpu_torch.pipeline import stages
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 
-#: Modules of the JAX package that import jax; the port must import none.
-JAX_MODULES = ("jax", "jaxlib", "warmup_fir_filter_tpu.kernels",
-               "warmup_fir_filter_tpu.ops.fir1d",
-               "warmup_fir_filter_tpu.ops.fir2d",
-               "warmup_fir_filter_tpu.ops.streaming",
-               "warmup_fir_filter_tpu.parallel",
-               "warmup_fir_filter_tpu.utils.benchmarking")
+#: JAX and the whole JAX package: the port imports none of them, not even
+#: the package's numpy modules (it keeps its own copies).
+JAX_MODULES = ("jax", "jaxlib", "warmup_fir_filter_tpu")
 
-#: A ``sys.meta_path`` finder refusing JAX_MODULES, for subprocesses.
+#: A ``sys.meta_path`` finder refusing JAX_MODULES and their submodules
+#: (``warmup_fir_filter_tpu_torch`` is not one), for subprocesses.
 BLOCK_JAX = f"""
 import sys
 BLOCKED = {JAX_MODULES!r}
@@ -271,13 +269,13 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
     calls = (tmp_path / "bin" / "calls.log").read_text().splitlines()
     sources = _build.kernel_sources()
     compiles = [c for c in calls if " -c " in c]
-    assert len(compiles) == len(sources) == 6
+    assert len(compiles) == len(sources) == 9
     assert all(str(src) in " ".join(compiles) for src in sources)
     assert len(calls) == len(sources) + 1 and "-shared" in calls[-1]
     assert sorted(p.name for p in library.parent.iterdir()) == [
         _build.LIBRARY_NAME, f"{_build.LIBRARY_NAME}.sha256"]
     assert _build.build(tmp_path / "build") == library  # up to date
-    assert len((tmp_path / "bin" / "calls.log").read_text().splitlines()) == 7
+    assert len((tmp_path / "bin" / "calls.log").read_text().splitlines()) == 10
 
 
 def test_source_digest_follows_sources(monkeypatch, tmp_path):
@@ -288,33 +286,49 @@ def test_source_digest_follows_sources(monkeypatch, tmp_path):
     (tmp_path / "fir_band.cu").write_text("// changed\n")
     assert _build.source_digest() != first
     assert [p.name for p in _build.kernel_sources()] == [
-        "fir2d_bf16.cu", "fir2d_frame.cu", "fir_band.cu", "fir_direct.cu",
-        "fir_window.cu", "window_copy.cu"]
-    for header in ("wft_window.cuh", "wft_fir2d.cuh"):
+        "chain_fused.cu", "fir2d_bf16.cu", "fir2d_frame.cu", "fir_band.cu",
+        "fir_direct.cu", "fir_float.cu", "fir_window.cu", "resample.cu",
+        "window_copy.cu"]
+    for header in ("wft_window.cuh", "wft_fir2d.cuh", "wft_chain.cuh"):
         first = _build.source_digest()
         (tmp_path / header).write_text("// changed\n")
         assert _build.source_digest() != first
 
 
 def test_port_imports_no_jax_module():
-    """Every module of the port imports with JAX_MODULES blocked."""
+    """Every module of the port, and chip_smoke.py with all its imports,
+    imports with JAX and the whole JAX package blocked."""
     modules = sorted(
         "warmup_fir_filter_tpu_torch." + ".".join(
             p.relative_to(REPO_ROOT / "warmup_fir_filter_tpu_torch")
             .with_suffix("").parts)
         for p in (REPO_ROOT / "warmup_fir_filter_tpu_torch").rglob("*.py")
         if p.name not in ("__init__.py", "__main__.py"))
-    assert {"warmup_fir_filter_tpu_torch.kernels.fir2d",
+    assert {"warmup_fir_filter_tpu_torch.kernels.chain_fused",
+            "warmup_fir_filter_tpu_torch.kernels.fir2d",
+            "warmup_fir_filter_tpu_torch.kernels.fir_float",
             "warmup_fir_filter_tpu_torch.kernels.fir_window",
+            "warmup_fir_filter_tpu_torch.kernels.resample",
             "warmup_fir_filter_tpu_torch.kernels.window_copy",
+            "warmup_fir_filter_tpu_torch.models.chain",
+            "warmup_fir_filter_tpu_torch.models.golden",
+            "warmup_fir_filter_tpu_torch.ops.demod",
+            "warmup_fir_filter_tpu_torch.ops.fftfilt",
             "warmup_fir_filter_tpu_torch.ops.fir2d",
-            "warmup_fir_filter_tpu_torch.ops.streaming"} <= set(modules)
+            "warmup_fir_filter_tpu_torch.ops.qformat",
+            "warmup_fir_filter_tpu_torch.ops.resample",
+            "warmup_fir_filter_tpu_torch.ops.streaming",
+            "warmup_fir_filter_tpu_torch.pipeline.report",
+            "warmup_fir_filter_tpu_torch.utils.profiling"} <= set(modules)
+    assert not (REPO_ROOT / "warmup_fir_filter_tpu_torch"
+                / "reference.py").exists()
+    modules.append("chip_smoke")
     code = BLOCK_JAX + (
         "import importlib\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
-        "assert not any(m == 'jax' or m.startswith('jax.') "
-        "for m in sys.modules)\n"
+        "assert not any(m.split('.')[0] in ('jax', 'jaxlib', "
+        "'warmup_fir_filter_tpu') for m in sys.modules)\n"
         "print('imported', len(" + repr(modules) + "))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
                           capture_output=True, text=True, timeout=120)

@@ -23,7 +23,6 @@ from warmup_fir_filter_tpu.models.filters import FILTER_BANKS
 from warmup_fir_filter_tpu.models.golden import fir1d_fixed_golden_rows
 from warmup_fir_filter_tpu.ops import fir1d as jax_fir1d
 from warmup_fir_filter_tpu.ops.qformat import (
-    QFormat,
     bias_round_shift_np,
     saturate_pixel_np,
     wrap_to_acc_bits_np,
@@ -36,6 +35,7 @@ from warmup_fir_filter_tpu_torch.ops.fir1d import (
     fixed_epilogue_i32,
     pad_rows_same_mode,
 )
+from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
 #: (coeff_bits, frac_bits, acc_bits, num_taps): the SWEEP cells of
 #: tests/test_qformat_sweep.py:30-40.

@@ -17,9 +17,9 @@ import pytest
 import torch
 
 from warmup_fir_filter_tpu.ops import fir2d as jax_fir2d
-from warmup_fir_filter_tpu.ops.qformat import QFormat
 from warmup_fir_filter_tpu_torch.kernels.dispatch import fir2d_fixed_auto
 from warmup_fir_filter_tpu_torch.ops import fir2d
+from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
 BANK = sorted(jax_fir2d.FILTER_BANK_2D)
 FORMATS = [QFormat(), QFormat(acc_bits=20), QFormat(8, 4, 32),

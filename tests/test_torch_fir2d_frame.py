@@ -35,10 +35,10 @@ import torch
 from warmup_fir_filter_tpu.kernels import fir2d_mxu
 from warmup_fir_filter_tpu.ops.fftfilt import snr_db
 from warmup_fir_filter_tpu.ops.fir2d import FILTER_BANK_2D, fir2d_fixed_golden
-from warmup_fir_filter_tpu.ops.qformat import QFormat
 from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.kernels import fir2d
 from warmup_fir_filter_tpu_torch.kernels.fir_band import band_planes_of
+from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
 LANE = 128
 BANK = sorted(FILTER_BANK_2D)

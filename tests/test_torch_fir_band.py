@@ -21,8 +21,8 @@ import torch
 from warmup_fir_filter_tpu.kernels import fir_mxu
 from warmup_fir_filter_tpu.models.filters import FILTER_BANKS
 from warmup_fir_filter_tpu.models.golden import fir1d_fixed_golden_rows
-from warmup_fir_filter_tpu.ops.qformat import QFormat
 from warmup_fir_filter_tpu_torch.kernels import fir_band as band
+from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
 FORMATS = [QFormat(), QFormat(8, 4, 32), QFormat(8, 7, 16),
            QFormat(16, 12, 20), QFormat(16, 15, 31), QFormat(32, 24, 32),

@@ -26,10 +26,10 @@ import torch
 from warmup_fir_filter_tpu.kernels import fir_mxu
 from warmup_fir_filter_tpu.models.filters import FILTER_BANKS
 from warmup_fir_filter_tpu.models.golden import fir1d_fixed_golden_rows
-from warmup_fir_filter_tpu.ops.qformat import QFormat
 from warmup_fir_filter_tpu.ops.resample import design_lowpass
 from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.kernels import fir_window as window
+from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
 FORMATS = [QFormat(), QFormat(8, 4, 32), QFormat(16, 12, 20),
            QFormat(16, 8, 24), QFormat(32, 24, 32), QFormat(32, 12, 28)]

@@ -20,9 +20,9 @@ import torch
 from warmup_fir_filter_tpu.models.filters import FILTER_BANKS
 from warmup_fir_filter_tpu.models.golden import fir1d_fixed_golden_rows
 from warmup_fir_filter_tpu.ops import streaming as jax_streaming
-from warmup_fir_filter_tpu.ops.qformat import QFormat
 from warmup_fir_filter_tpu_torch.kernels import fir_band, window_copy
 from warmup_fir_filter_tpu_torch.kernels.dispatch import prepare_fixed_fir
+from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 from warmup_fir_filter_tpu_torch.ops.streaming import (
     Fir1DStream,
     FirStreamState,

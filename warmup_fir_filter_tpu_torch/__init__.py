@@ -2,18 +2,23 @@
 
 A second package beside ``warmup_fir_filter_tpu`` (the JAX reference,
 left untouched).  It runs the reference's 5-stage verification pipeline
-with the fixed-point stage on an NVIDIA Hopper GPU, through kernels
-written by hand in CUDA C++ (``csrc/``), and holds every fixed output bit
-for bit against the reference.
+with the fixed-point stage on an NVIDIA Hopper GPU, the streaming and 2-D
+paths, and the DSP chain (resample → channelize → FM demod), through
+kernels written by hand in CUDA C++ (``csrc/``), and holds every output
+against the reference.  It imports nothing of the JAX package: the numpy
+modules it shares with it (Q-format arithmetic, the golden oracle, the
+artifact store, reports, restore, the synthetic corpus, image IO, status
+lines) are copies kept under the JAX package's names and paths.
 
 Layout
 ------
-- ``reference.py``  the JAX-free modules of the JAX package, reused by
-                    import (the only door into that package)
 - ``_build.py``     nvcc → ``libwft_kernels.so`` → ctypes, at first use
-- ``ops/``          plain PyTorch FIR paths (the kernels' plain versions)
+- ``ops/``          plain PyTorch paths (the kernels' plain versions), the
+                    Q-format and validation copies
 - ``kernels/``      the CUDA kernels' wrappers, parameters and dispatch
-- ``pipeline/``     the fixed-output stage
+- ``models/``       the filter banks, the golden oracle, the DSP chain
+- ``pipeline/``     the 5-stage pipeline's stages, store and reports
+- ``utils/``        image IO, status lines, the stage timer
 - ``cli.py``        the pipeline CLI (``python -m warmup_fir_filter_tpu_torch``)
 
 Every function takes its device from its tensors or an explicit
@@ -21,7 +26,7 @@ Every function takes its device from its tensors or an explicit
 runs the plain PyTorch version.
 """
 
-from warmup_fir_filter_tpu_torch.reference import QFormat
+from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
 __version__ = "0.1.0"
 

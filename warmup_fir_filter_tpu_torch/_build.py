@@ -88,6 +88,26 @@ _SIGNATURES = {
          _INT, _INT, _INT, _VOIDP],
         _INT,
     ),
+    # x, y, rows, n, taps (device f32), num_taps, x_is_u8, stream
+    "wft_fir_float": (
+        [_VOIDP, _VOIDP, _LL, _LL, _VOIDP, _INT, _INT, _VOIDP],
+        _INT,
+    ),
+    # x, y, rows, n, out_len, branch taps (device f32), up, down, center,
+    # taps per branch, tap row stride, stream
+    "wft_resample": (
+        [_VOIDP, _VOIDP, _LL, _LL, _LL, _VOIDP, _INT, _INT, _INT, _INT, _INT,
+         _VOIDP],
+        _INT,
+    ),
+    # x_re, x_im, y, channels, n, out_len, branch taps, up, down, center,
+    # taps per branch, tap row stride, channelizer taps (device f32),
+    # channelizer length, lo, hi, inv_gain, bf16, stream
+    "wft_chain_fused": (
+        [_VOIDP, _VOIDP, _VOIDP, _LL, _LL, _LL, _VOIDP, _INT, _INT, _INT,
+         _INT, _INT, _VOIDP, _INT, _LL, _LL, ctypes.c_float, _INT, _VOIDP],
+        _INT,
+    ),
     "wft_error_string": ([_INT], ctypes.c_char_p),
 }
 
@@ -195,6 +215,19 @@ def load_library(build_dir: Path = DEFAULT_BUILD_DIR) -> ctypes.CDLL:
             fn.restype = restype
         _LOADED[key] = lib
     return _LOADED[key]
+
+
+def check_rows(x: torch.Tensor, dtypes: tuple[torch.dtype, ...]) -> None:
+    """Raise unless ``x`` is a 2-D tensor of one of ``dtypes`` on the CPU
+    or a GPU."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"expected a torch.Tensor, got {type(x).__name__}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}; use cpu or cuda")
+    if x.dtype not in dtypes:
+        raise TypeError(f"expected samples of {dtypes}, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"expected (B, N) rows, got shape {tuple(x.shape)}")
 
 
 def check_rows_u8(x: torch.Tensor) -> None:

@@ -12,8 +12,9 @@ images, with the same flags, except that
 - ``--image-dir`` has no default: it is needed unless ``--skip-input``;
 - there is no ``--profile`` yet.
 
-Only the fixed stage runs on the device; the other stages are the
-reference's numpy code.  Run as ``python -m warmup_fir_filter_tpu_torch``.
+Only the fixed stage runs on the device; the other stages are the port's
+copies of the JAX package's numpy code.  Run as
+``python -m warmup_fir_filter_tpu_torch``.
 """
 
 from __future__ import annotations
@@ -22,23 +23,23 @@ import argparse
 import time
 from pathlib import Path
 
+from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
+from warmup_fir_filter_tpu_torch.pipeline.analysis import (
+    generate_analysis_doc,
+    generate_comparison_doc,
+)
+from warmup_fir_filter_tpu_torch.pipeline.artifacts import ArtifactStore
+from warmup_fir_filter_tpu_torch.pipeline.report import generate_compare_report
+from warmup_fir_filter_tpu_torch.pipeline.restore import restore_images
 from warmup_fir_filter_tpu_torch.pipeline.stages import (
     DEVICES,
     FIXED_BACKENDS,
     generate_fixed_outputs,
-)
-from warmup_fir_filter_tpu_torch.reference import (
-    ArtifactStore,
-    QFormat,
-    generate_analysis_doc,
-    generate_compare_report,
-    generate_comparison_doc,
     generate_ideal_outputs,
     generate_input_vectors,
-    restore_images,
-    stage_line,
-    synthesize_corpus,
 )
+from warmup_fir_filter_tpu_torch.pipeline.synthetic import synthesize_corpus
+from warmup_fir_filter_tpu_torch.utils.logging import stage_line
 
 
 def run_pipeline(

@@ -41,11 +41,9 @@ from warmup_fir_filter_tpu_torch.kernels.fir_window import (
     MAX_TAPS as MAX_TAPS_WINDOWED,
     FixedFirWindow,
 )
+from warmup_fir_filter_tpu_torch.models.golden import fir1d_fixed_golden_rows
 from warmup_fir_filter_tpu_torch.ops.fir2d import fir2d_fixed_torch
-from warmup_fir_filter_tpu_torch.reference import (
-    QFormat,
-    fir1d_fixed_golden_rows,
-)
+from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
 
 def prepare_fixed_fir(h, qformat: QFormat = QFormat(),

@@ -56,7 +56,7 @@ from warmup_fir_filter_tpu_torch.kernels.fir_band import (
     signed_base256_digits,
 )
 from warmup_fir_filter_tpu_torch.ops.fir2d import require_int32_format
-from warmup_fir_filter_tpu_torch.reference import QFormat
+from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
 #: Maximum column overlap (Lc - 1) of the overlapped frame
 #: (``fir2d_mxu.py:511``).

@@ -31,7 +31,7 @@ from torch import nn
 
 from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.ops.fir1d import fixed_epilogue_i32
-from warmup_fir_filter_tpu_torch.reference import QFormat
+from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
 LANE = 128
 #: Tri-tile band limit: output tile p reads input tiles p-1, p, p+1 only.

@@ -19,7 +19,7 @@ from warmup_fir_filter_tpu_torch.ops.fir1d import (
     fir1d_fixed_rows_torch,
     require_int32_format,
 )
-from warmup_fir_filter_tpu_torch.reference import QFormat
+from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
 
 def fir_direct(x_u8: torch.Tensor, h, qformat: QFormat = QFormat()) -> torch.Tensor:

@@ -37,7 +37,7 @@ from warmup_fir_filter_tpu_torch.kernels.fir_band import (
     kept_digit_planes,
     plain_epilogue,
 )
-from warmup_fir_filter_tpu_torch.reference import QFormat
+from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
 #: ``fir_mxu.MAX_TAPS_WINDOWED``.
 MAX_TAPS = 4096

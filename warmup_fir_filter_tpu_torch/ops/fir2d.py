@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from warmup_fir_filter_tpu_torch.ops.fir1d import fixed_epilogue_i32
-from warmup_fir_filter_tpu_torch.reference import (
+from warmup_fir_filter_tpu_torch.ops.qformat import (
     QFormat,
     bias_round_shift_np,
     saturate_pixel_np,

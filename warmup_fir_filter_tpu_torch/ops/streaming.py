@@ -46,7 +46,7 @@ from warmup_fir_filter_tpu_torch.kernels.window_copy import (
 )
 from warmup_fir_filter_tpu_torch.ops.fir1d import fixed_fir_prehaloed_i32
 from warmup_fir_filter_tpu_torch.pipeline.stages import resolve_device
-from warmup_fir_filter_tpu_torch.reference import QFormat
+from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
 #: Odd (bijective mod 2^32) Weyl constant of the third checksum.
 WEYL = 2654435761
