@@ -70,9 +70,33 @@ of them pass:
             32 × 1,333,334, the demod, kernel J in both modes, the plain
             versions, ``F.conv1d`` of the 63 taps (TF32 off), the two
             chains end to end and a ``copy_`` of the input.
+12. FFT    kernels K (row FFT), L (framed overlap-save filter) and M
+    kernels (stream overlap-save filter) against their float64 plain
+            versions on the card, SNR >= 120 dB: K over nfft 2-16,384 ×
+            batches 1, 5, 1,000 × complex, real and inverse rows, also
+            within 2e-4·max|want| of the float64 FFT; L over pinned nfft
+            128-4,096 × 2, 9, 63 taps and 259 and 2,048 taps at their
+            automatic nfft; M over the stream cases of
+            tests/test_fft_pallas.py:166-176 and T ∈ {1, 511, 40,001}; u8
+            outputs within 1 of the plain version's on under 0.1%.
+13. config  BASELINE config 4 at bench_configs.py:167-178's size (16 ×
+    4       10,000,000 u8 from seed 4, widened to f32 on the card,
+            ``design_lowpass(63, 0.25)``): ``fir_overlap_save_pallas``
+            through kernel M alone, SNR > 70 dB against a float64 FIR on
+            the card (the config's gate) and >= 90 dB against the
+            ``torch.fft`` overlap-save; the shard-local call over 4 blocks
+            of 2,500,000 with 31-sample halos (``off=31``) within 90 dB of
+            it; the quantized u8 path through kernel M against kernel A
+            (within 1 on under 2%); the filter's frequency response
+            measured through ``fft_rows_pallas`` (kernel K) within 0.01 of
+            the design; the chain on config 5's planes with the
+            ``"pallas"`` channelizer (kernels I and M) and a 259-tap
+            ``"auto"`` one (I and L); then CUDA-event medians of K, L and M,
+            their plain versions, ``torch.fft.fft``, ``F.conv1d`` (TF32
+            off), the ``torch.fft`` overlap-save and a ``copy_``.
 
-Launch counts are zeroed just before each main path (phases 4-8 and 11)
-and read just after it.  Then one JSON line for the kernels (each with its
+Launch counts are zeroed just before each main path (phases 4-8, 11 and
+13) and read just after it.  Then one JSON line for the kernels (each with its
 time, its plain version's, its bound at the card's published peaks and,
 where one PyTorch call computes the same function, that call's time), the
 card line, and as the last line ``{"ok": true, "device": {...}}``.  Inputs
@@ -101,7 +125,29 @@ from warmup_fir_filter_tpu_torch.kernels.chain_fused import (
     chain_fused,
     chain_fused_plain,
 )
-from warmup_fir_filter_tpu_torch.kernels.dispatch import fir2d_fixed_auto
+from warmup_fir_filter_tpu_torch.kernels.dispatch import (
+    fir1d_fixed_rows_auto,
+    fir2d_fixed_auto,
+)
+from warmup_fir_filter_tpu_torch.kernels.fft import (
+    LANE,
+    STREAM_NFFT,
+    FilterSpectrum,
+    _osfilt_segments,
+    _stream_geometry,
+    _u8_stage,
+    _zero_extended,
+    fft_rows,
+    fft_rows_pallas,
+    fft_rows_plain,
+    fir_overlap_save_pallas,
+    fir_overlap_save_quantized_pallas,
+    fir_overlap_save_stream,
+    osfilt,
+    osfilt_plain,
+    osfilt_stream,
+    osfilt_stream_plain,
+)
 from warmup_fir_filter_tpu_torch.kernels.fir2d import (
     FixedFir2d,
     bf16_2d_exact,
@@ -150,6 +196,7 @@ from warmup_fir_filter_tpu_torch.models.chain import ChainConfig, chain_forward
 from warmup_fir_filter_tpu_torch.models.filters import FILTER_BANKS
 from warmup_fir_filter_tpu_torch.models.golden import fir1d_fixed_golden_rows
 from warmup_fir_filter_tpu_torch.ops.demod import fm_demodulate, fm_modulate
+from warmup_fir_filter_tpu_torch.ops.fftfilt import fir_overlap_save, pick_nfft
 from warmup_fir_filter_tpu_torch.ops.fir1d import (
     fir1d_fixed_rows_torch,
     fir1d_ideal_rows_torch,
@@ -185,6 +232,8 @@ from warmup_fir_filter_tpu_torch.pipeline.synthetic import (
 from warmup_fir_filter_tpu_torch.utils.imageio import save_gray_png
 
 SEED = 20261016
+#: Host clock at import: the phases print their start against it.
+START = time.perf_counter()
 REPO_ROOT = Path(__file__).resolve().parent
 WORK_DIR = REPO_ROOT / "artifacts" / "chip_smoke"
 
@@ -285,11 +334,43 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = {"f32": 67e12, "int8": 1979e12}
 KERNELS = ("fir_band", "fir_direct", "fir_window", "window_rows",
            "fir2d_frame", "fir2d_oframe", "fir2d_bf16", "fir_float",
-           "resample", "chain_fused")
+           "resample", "chain_fused", "fft_rows", "osfilt", "osfilt_stream")
+#: Kernel K's grid (nfft × batch, complex, real and inverse rows) and
+#: kernel L's (pinned nfft × taps, then long filters at their automatic
+#: nfft: 4,096 and 16,384).
+FFT_SIZES = (2, 128, 256, 512, 2048, 16384)
+FFT_BATCHES = (1, 5, 1000)
+OSFILT_SIZES = (128, 256, 512, 2048, 4096)
+OSFILT_TAPS = (2, 9, 63)
+OSFILT_LONG_TAPS = (259, 2048)
+OSFILT_SEGMENTS = 1001
+#: Kernel M's (C, T, L, off): tests/test_fft_pallas.py:166-176, then
+#: T ∈ {1, 511, 40,001} at 63 taps.
+STREAM_FFT_CASES = ((3, 2000, 63, 0), (2, 1111, 63, 31), (1, 700, 5, 0),
+                    (4, 4096, 129, 64), (2, 900, 257, 128), (2, 513, 63, 62),
+                    (3, 300, 63, 0), (2, 257, 1, 0), (2, 1, 63, 0),
+                    (2, 511, 63, 0), (2, 40001, 63, 0))
+#: BASELINE config 4 as bench_configs.py:167-178 runs it: 16 × 10,000,000
+#: u8 from seed 4, 63-tap low-pass at 0.25; the shard-local call over 4
+#: time blocks; the framed kernel L timed at a pinned nfft.
+CONFIG4_CHANNELS = 16
+CONFIG4_TIME = 10_000_000
+CONFIG4_SEED = 4
+CONFIG4_TAPS = 63
+CONFIG4_SHARDS = 4
+CONFIG4_PINNED_NFFT = 2048
+#: Rows of the frequency-response measurement through kernel K.
+RESPONSE_NFFT = 8192
+#: Kernel K's timed shapes (rows, nfft), complex.
+FFT_TIMING_SHAPES = ((8192, 2048), (1024, 16384))
+FFT_TIMING_REPS = 7
+FFT_TIMING_LAUNCHES = 5
+PLAIN_FFT_CALLS = 2
 
 
 def phase(name: str) -> None:
-    print(f"[chip_smoke] phase {name}", flush=True)
+    print(f"[chip_smoke] phase {name} (at {time.perf_counter() - START:.1f} s)",
+          flush=True)
 
 
 def card_line() -> str:
@@ -309,7 +390,9 @@ def launch_counts() -> dict:
             "fir2d_oframe": fir2d_oframe.launches,
             "fir2d_bf16": fir2d_bf16.launches,
             "fir_float": fir_float.launches, "resample": resample.launches,
-            "chain_fused": chain_fused.launches}
+            "chain_fused": chain_fused.launches,
+            "fft_rows": fft_rows.launches, "osfilt": osfilt.launches,
+            "osfilt_stream": osfilt_stream.launches}
 
 
 def reset_launch_counts() -> None:
@@ -317,6 +400,7 @@ def reset_launch_counts() -> None:
     fir_window.launches = window_rows.launches = 0
     fir2d_frame.launches = fir2d_oframe.launches = fir2d_bf16.launches = 0
     fir_float.launches = resample.launches = chain_fused.launches = 0
+    fft_rows.launches = osfilt.launches = osfilt_stream.launches = 0
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -1357,6 +1441,347 @@ def time_chain(card: str, fm: tuple) -> dict:
     return result
 
 
+class U8Agreement(Agreement):
+    """u8 outputs of kernels L and M against their plain versions' float64
+    results through the same output stage: within 1 (an f32 and an f64 sum
+    on either side of a rounding tie), on under 0.1% of the samples."""
+
+    def __init__(self):
+        super().__init__()
+        self.max_share = 0.0
+
+    def check_stage(self, got: torch.Tensor, want64: torch.Tensor,
+                    label: str, share: float = 1e-3) -> None:
+        want = _u8_stage(want64.to(torch.float32))
+        self.check(got, want, label, tolerance=1)
+        differ = (float((got != want).to(torch.float64).mean())
+                  if got.numel() else 0.0)
+        self.max_share = max(self.max_share, differ)
+        if not differ < share:
+            raise AssertionError(f"{label}: {differ:.4%} of u8 outputs differ "
+                                 f"from the plain version's (limit {share})")
+
+
+def check_fft_kernels(agree: dict, agree_u8: dict) -> None:
+    """Kernels K, L and M against their float64 plain versions on the
+    card, SNR >= 120 dB, over the grids of phase 12; K also within
+    2e-4·max|want| of the float64 FFT (tests/test_fft_pallas.py:45-49)."""
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for nfft in FFT_SIZES:
+        for batch in FFT_BATCHES:
+            xr = torch.randn((batch, nfft), device="cuda", generator=gen)
+            xi = torch.randn((batch, nfft), device="cuda", generator=gen)
+            for mode, im, inverse in (("complex", xi, False),
+                                      ("real", None, False),
+                                      ("inverse", xi, True)):
+                label = f"fft_rows nfft={nfft} B={batch} {mode}"
+                got = torch.stack(fft_rows(xr, im, inverse=inverse))
+                agree["fft_rows"].check(got, torch.stack(fft_rows_plain(
+                    xr, im, inverse=inverse)), label, 120.0)
+                x64 = torch.complex(xr.double(), torch.zeros_like(
+                    xr, dtype=torch.float64) if im is None else im.double())
+                ref = torch.fft.ifft(x64) if inverse else torch.fft.fft(x64)
+                err = float((torch.complex(got[0].double(), got[1].double())
+                             - ref).abs().max())
+                if not err <= 2e-4 * float(ref.abs().max()):
+                    raise AssertionError(f"{label}: max |got - fft| {err:.3g}"
+                                         " over 2e-4 max|want|")
+    cells = [(nfft, taps) for nfft in OSFILT_SIZES for taps in OSFILT_TAPS]
+    cells += [(pick_nfft(taps), taps) for taps in OSFILT_LONG_TAPS]
+    for nfft, taps in cells:
+        spec = FilterSpectrum(rng.uniform(0.0, 2.0 / taps, taps), nfft,
+                              device="cuda")
+        seg = torch.from_numpy(rng.integers(
+            0, 256, size=(OSFILT_SEGMENTS, nfft), dtype=np.uint8)).cuda()
+        want = osfilt_plain(seg, spec)
+        for x in (seg, seg.to(torch.float32)):
+            label = f"osfilt nfft={nfft} L={taps} {x.dtype}"
+            agree["osfilt"].check(osfilt(x, spec, out_u8=False), want, label,
+                                  120.0)
+            agree_u8["osfilt"].check_stage(osfilt(x, spec, out_u8=True), want,
+                                           label)
+    for channels, time_len, taps, off in STREAM_FFT_CASES:
+        h = design_lowpass(taps, 0.2) if taps > 1 else np.array([1.0])
+        tables = FilterSpectrum(h, STREAM_NFFT,
+                                d=_stream_geometry(taps, off)[1],
+                                device="cuda")
+        shape = (channels, time_len + off)
+        label = f"osfilt_stream C={channels} T={time_len} L={taps} off={off}"
+        x = torch.randn(shape, device="cuda", generator=gen)
+        agree["osfilt_stream"].check(
+            osfilt_stream(x, tables, off=off, out_len=time_len, out_u8=False),
+            osfilt_stream_plain(x, tables, off=off, out_len=time_len), label,
+            120.0)
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
+                          generator=gen)
+        agree_u8["osfilt_stream"].check_stage(
+            osfilt_stream(x, tables, off=off, out_len=time_len, out_u8=True),
+            osfilt_stream_plain(x, tables, off=off, out_len=time_len), label)
+    torch.cuda.synchronize()
+    print("[chip_smoke] FFT kernels: " + ", ".join(
+        f"{name} {a.count} comparisons (min SNR {a.min_snr_db:.1f} dB, max "
+        f"|diff| {a.max_abs_err:.3g})" for name, a in agree.items())
+        + "; u8: " + ", ".join(
+            f"{name} {a.count} (max |diff| {a.max_abs_err}, at most "
+            f"{a.max_share:.4%} differing)" for name, a in agree_u8.items()),
+        flush=True)
+
+
+def ideal_fir64(x: torch.Tensor, h: np.ndarray) -> torch.Tensor:
+    """The ideal golden's function on the card, in float64: the same-mode
+    FIR ``y[n] = Σ_k h[k]·x[n − k + L//2]`` with a zero pad."""
+    taps = h.size
+    xp = F.pad(x.to(torch.float64), (taps - 1 - taps // 2, taps // 2))
+    y = torch.zeros(x.shape, dtype=torch.float64, device=x.device)
+    for k in range(taps):
+        y.add_(xp[:, taps - 1 - k : taps - 1 - k + x.shape[1]],
+               alpha=float(h[k]))
+    return y
+
+
+def run_config4(agree: dict) -> tuple[dict, dict, tuple]:
+    """BASELINE config 4 at full size (phase 13): ``fir_overlap_save_pallas``
+    through kernel M alone, against the float64 FIR (> 70 dB, the config's
+    gate), the ``torch.fft`` overlap-save (>= 90 dB) and kernel M's plain
+    version (>= 120 dB); the shard-local call over 4 blocks (>= 90 dB
+    against the unsharded output); the quantized u8 path against kernel A
+    (within 1 on under 2%, tests/test_fft_pallas.py:130-132); the filter's
+    frequency response measured through ``fft_rows_pallas`` (kernel K),
+    within 0.01 of ``|DFT(h)|`` at every bin."""
+    rng = np.random.default_rng(CONFIG4_SEED)
+    x_u8 = torch.from_numpy(rng.integers(
+        0, 256, size=(CONFIG4_CHANNELS, CONFIG4_TIME), dtype=np.uint8)).cuda()
+    x = x_u8.to(torch.float32)
+    h = design_lowpass(CONFIG4_TAPS, 0.25)
+    counts, result = {}, {}
+    reset_launch_counts()
+    y = fir_overlap_save_pallas(x, h)
+    torch.cuda.synchronize()
+    counts["config4"] = launch_counts()
+    only(counts["config4"], "osfilt_stream", 1, "config 4")
+    if (tuple(y.shape) != tuple(x.shape) or y.dtype != torch.float32
+            or not bool(torch.isfinite(y).all())):
+        raise AssertionError(f"config 4: {y.dtype} {tuple(y.shape)} or "
+                             "non-finite output")
+    result["snr_db_vs_ideal"] = snr_on_card(ideal_fir64(x, h), y)
+    result["snr_db_vs_torch_fft"] = snr_on_card(fir_overlap_save(x, h), y)
+    tables = FilterSpectrum(h, STREAM_NFFT,
+                            d=_stream_geometry(CONFIG4_TAPS, 0)[1],
+                            device="cuda")
+    agree["osfilt_stream"].check(
+        y, osfilt_stream_plain(x, tables, off=0, out_len=CONFIG4_TIME),
+        f"osfilt_stream config 4 {tuple(x.shape)}", 120.0)
+
+    # The shard-local call of parallel/fft_sharded.py:80-82, :133-142: each
+    # time block with its halo (zeros at the stream's ends), off = L-1-c.
+    halo = CONFIG4_TAPS - 1 - CONFIG4_TAPS // 2
+    block = CONFIG4_TIME // CONFIG4_SHARDS
+    blocks = [_zero_extended(x, b * block - halo, block + 2 * halo)
+              for b in range(CONFIG4_SHARDS)]
+    reset_launch_counts()
+    parts = [fir_overlap_save_stream(xb, h, off=halo, out_len=block)
+             for xb in blocks]
+    torch.cuda.synchronize()
+    counts["config4_shards"] = launch_counts()
+    only(counts["config4_shards"], "osfilt_stream", CONFIG4_SHARDS,
+         "config 4 shard-local")
+    result["shards_snr_db_vs_unsharded"] = snr_on_card(y, torch.cat(parts, 1))
+    result["shard_hop_tiles"] = _stream_geometry(CONFIG4_TAPS, halo)[3]
+    del blocks, parts
+
+    reset_launch_counts()
+    y_q = fir_overlap_save_quantized_pallas(x_u8, h)
+    torch.cuda.synchronize()
+    counts["config4_u8"] = launch_counts()
+    only(counts["config4_u8"], "osfilt_stream", 1, "config 4 u8")
+    diff = (y_q.to(torch.int16)
+            - fir1d_fixed_rows_auto(x_u8, h).to(torch.int16)).abs()
+    result["u8_max_diff_vs_kernel_a"] = int(diff.max())
+    result["u8_share_differing_vs_kernel_a"] = float(
+        (diff != 0).to(torch.float64).mean())
+    del y_q, diff
+
+    # The response: the cross-spectrum of output and input over 8,192-point
+    # rows (mean removed), over the input's power, against |DFT(h)|.
+    n = RESPONSE_NFFT
+    rows = CONFIG4_TIME // n
+    xb = (x[:, : rows * n] - x.mean()).reshape(-1, n)
+    yb = (y[:, : rows * n] - y.mean()).reshape(-1, n)
+    reset_launch_counts()
+    spectra = [fft_rows_pallas(b) for b in (xb, yb)]
+    torch.cuda.synchronize()
+    counts["config4_response"] = launch_counts()
+    only(counts["config4_response"], "fft_rows", 2, "config 4 response")
+    agree["fft_rows"].check(
+        torch.stack(spectra[0]),
+        torch.stack(fft_rows_plain(xb, None, inverse=False)),
+        f"fft_rows config 4 rows {tuple(xb.shape)}", 120.0)
+    big_x, big_y = (torch.complex(re.double(), im.double())
+                    for re, im in spectra)
+    del spectra, xb, yb
+    gain = ((big_y * big_x.conj()).sum(0)
+            / big_x.abs().square().sum(0)).abs()[: n // 2 + 1]
+    design = torch.as_tensor(np.abs(np.fft.fft(h, n))[: n // 2 + 1],
+                             device="cuda")
+    result["response_max_err"] = float((gain - design).abs().max())
+    result["launches"] = counts
+    del big_x, big_y, y
+    print(f"[chip_smoke] config 4 {json.dumps(result)}", flush=True)
+    if not (result["snr_db_vs_ideal"] > 70.0
+            and result["snr_db_vs_torch_fft"] >= 90.0
+            and result["shards_snr_db_vs_unsharded"] >= 90.0
+            and result["u8_max_diff_vs_kernel_a"] <= 1
+            and result["u8_share_differing_vs_kernel_a"] < 0.02
+            and result["response_max_err"] < 0.01):
+        raise AssertionError(f"config 4 failed a gate: {result}")
+    return counts, result, (x_u8, x, h)
+
+
+def run_chain_fft(agree: dict, fm: tuple) -> tuple[dict, dict]:
+    """The chain on config 5's FM planes with the ``"pallas"`` channelizer
+    (kernels I then M alone, >= 90 dB against staged ``"mxu"``) and a
+    259-tap channelizer under ``"auto"`` (kernels I then L alone, >= 90 dB
+    against the ``torch.fft`` channelizer); kernels M and L against their
+    plain versions at the shapes the chain gives them."""
+    cfg = ChainConfig()
+    long_cfg = dataclasses.replace(cfg, channelizer_taps=259)
+    runs = {"chain_pallas": (dataclasses.replace(
+                cfg, channelizer_backend="pallas"), "osfilt_stream",
+                dataclasses.replace(cfg, channelizer_backend="mxu")),
+            "chain_auto_259": (long_cfg, "osfilt", dataclasses.replace(
+                long_cfg, channelizer_backend="jnp"))}
+    counts, result = {}, {}
+    for run, (config, kernel, reference) in runs.items():
+        reset_launch_counts()
+        y = chain_forward(*fm, config)
+        torch.cuda.synchronize()
+        counts[run] = c = launch_counts()
+        if c["resample"] < 1 or c[kernel] < 1 or any(
+                c[k] for k in KERNELS if k not in ("resample", kernel)):
+            raise AssertionError(f"{run} launches {c}: expected kernels I "
+                                 f"and {kernel} only")
+        result[f"{run}_snr_db"] = snr_on_card(chain_forward(*fm, reference),
+                                              y)
+    both = resample(torch.cat(fm, dim=0), PolyphaseResampler(
+        cfg.resample_filter(), 2, 3, "cuda"))
+    h = cfg.channelizer_filter()
+    tables = FilterSpectrum(h, STREAM_NFFT, d=_stream_geometry(h.size, 0)[1],
+                            device="cuda")
+    agree["osfilt_stream"].check(
+        osfilt_stream(both, tables, off=0, out_len=both.shape[1],
+                      out_u8=False),
+        osfilt_stream_plain(both, tables, off=0, out_len=both.shape[1]),
+        f"osfilt_stream chain {tuple(both.shape)}", 120.0)
+    h = long_cfg.channelizer_filter()
+    seg, _, _ = _osfilt_segments(both, h.size, pick_nfft(h.size))
+    spec = FilterSpectrum(h, pick_nfft(h.size), device="cuda")
+    agree["osfilt"].check(osfilt(seg, spec, out_u8=False),
+                          osfilt_plain(seg, spec),
+                          f"osfilt chain segments {tuple(seg.shape)}", 120.0)
+    result["launches"] = counts
+    print(f"[chip_smoke] chain FFT channelizers {json.dumps(result)}",
+          flush=True)
+    if not (result["chain_pallas_snr_db"] >= 90.0
+            and result["chain_auto_259_snr_db"] >= 90.0):
+        raise AssertionError(f"chain FFT channelizers failed a gate: {result}")
+    return counts, result
+
+
+def time_fft(card: str, agree: dict, x_u8: torch.Tensor, x: torch.Tensor,
+             h: np.ndarray) -> dict:
+    """CUDA-event medians at config 4: kernel M (f32 in and out; u8 in and
+    out), kernel L over the stream framed at a pinned nfft of 2,048,
+    kernel K at 8,192 × 2,048 and 1,024 × 16,384 complex, their plain
+    versions, ``torch.fft.fft``, ``F.conv1d`` of the 63 taps (TF32 off:
+    the same f32 function), the ``torch.fft`` overlap-save, the entry
+    ``fir_overlap_save_pallas`` end to end and a ``copy_`` of the f32
+    input; with the work of each timed call for its bound."""
+    _, d, _, hop_tiles = _stream_geometry(h.size, 0)
+    tables = FilterSpectrum(h, STREAM_NFFT, d=d, device="cuda")
+    nfft = CONFIG4_PINNED_NFFT
+    seg, _, _ = _osfilt_segments(x, h.size, nfft)
+    spec = FilterSpectrum(h, nfft, device="cuda")
+    agree["osfilt"].check(osfilt(seg, spec, out_u8=False),
+                          osfilt_plain(seg, spec),
+                          f"osfilt config 4 segments {tuple(seg.shape)}",
+                          120.0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    planes = {n: (torch.randn((rows, n), device="cuda", generator=gen),
+                  torch.randn((rows, n), device="cuda", generator=gen))
+              for rows, n in FFT_TIMING_SHAPES}
+    for n, (xr, xi) in planes.items():
+        agree["fft_rows"].check(
+            torch.stack(fft_rows(xr, xi, inverse=False)),
+            torch.stack(fft_rows_plain(xr, xi, inverse=False)),
+            f"fft_rows {tuple(xr.shape)}", 120.0)
+    cplx = {n: torch.complex(*p) for n, p in planes.items()}
+    left = h.size - 1 - h.size // 2
+    weight = torch.as_tensor(h[::-1].copy(), dtype=torch.float32,
+                             device="cuda").view(1, 1, -1)
+    x3 = x.unsqueeze(1)
+    conv_snr = snr_on_card(
+        osfilt_stream(x, tables, off=0, out_len=x.shape[1], out_u8=False),
+        F.conv1d(x3, weight, padding=left).squeeze(1))
+    if not conv_snr >= 100.0:
+        raise AssertionError(f"F.conv1d is not config 4's function (SNR "
+                             f"{conv_snr:.1f} dB against kernel M)")
+    copy_dst = torch.empty_like(x)
+    (n_a, (ar, ai)), (n_b, (br, bi)) = planes.items()
+    out_len = x.shape[1]
+    runs = {
+        "osfilt_stream": lambda: osfilt_stream(x, tables, off=0,
+                                               out_len=out_len, out_u8=False),
+        "osfilt_stream_u8": lambda: osfilt_stream(
+            x_u8, tables, off=0, out_len=out_len, out_u8=True),
+        "osfilt": lambda: osfilt(seg, spec, out_u8=False),
+        f"fft_rows_{n_a}": lambda: fft_rows(ar, ai, inverse=False),
+        f"fft_rows_{n_b}": lambda: fft_rows(br, bi, inverse=False),
+        f"torch_fft_{n_a}": lambda: torch.fft.fft(cplx[n_a]),
+        f"torch_fft_{n_b}": lambda: torch.fft.fft(cplx[n_b]),
+        "conv1d": lambda: F.conv1d(x3, weight, padding=left),
+        "torch_fft_overlap_save": lambda: fir_overlap_save(x, h),
+        "entry": lambda: fir_overlap_save_pallas(x, h),
+        "copy": lambda: copy_dst.copy_(x),
+    }
+    med = median_ms(runs, FFT_TIMING_REPS, FFT_TIMING_LAUNCHES)
+    med.update(median_ms({
+        "osfilt_stream_plain": lambda: osfilt_stream_plain(
+            x, tables, off=0, out_len=out_len),
+        "osfilt_plain": lambda: osfilt_plain(seg, spec),
+        f"fft_rows_plain_{n_a}": lambda: fft_rows_plain(ar, ai,
+                                                        inverse=False),
+        f"fft_rows_plain_{n_b}": lambda: fft_rows_plain(br, bi,
+                                                        inverse=False),
+    }, 3, PLAIN_FFT_CALLS))
+    shapes = {"osfilt": f"{seg.shape[0]} x {nfft} segments",
+              **{f"{kind}_{n}": f"{xr.shape[0]} x {n} complex"
+                 for n, (xr, _) in planes.items()
+                 for kind in ("fft_rows", "fft_rows_plain", "torch_fft")}}
+    shapes["osfilt_plain"] = shapes["osfilt"]
+    for run, (m, lo, hi) in med.items():
+        shape = shapes.get(run, f"{CONFIG4_CHANNELS} x {CONFIG4_TIME} stream")
+        print(f"[chip_smoke] time fft {run}: median {m:.4f} ms (min {lo:.4f}, "
+              f"max {hi:.4f}) [{shape}; {card}]", flush=True)
+    result = {run: m for run, (m, _, _) in med.items()}
+    result["conv1d_snr_db"] = conv_snr
+    windows = CONFIG4_CHANNELS * -(-out_len // (hop_tiles * LANE))
+
+    def transform_ops(n: int) -> float:
+        return 5.0 * n * np.log2(n)
+
+    filter_ops = 2 * transform_ops(STREAM_NFFT) + 6 * STREAM_NFFT
+    result["work"] = {
+        "osfilt_stream": (2.0 * x.numel() * 4, windows * filter_ops),
+        "osfilt_stream_u8": (2.0 * x.numel(), windows * filter_ops),
+        "osfilt": (2.0 * seg.numel() * 4, seg.shape[0]
+                   * (2 * transform_ops(nfft) + 6 * nfft)),
+        **{f"fft_rows_{n}": (16.0 * xr.numel(), xr.shape[0] * transform_ops(n))
+           for n, (xr, _) in planes.items()},
+    }
+    return result
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1440,7 +1865,21 @@ def main() -> int:
     counts5, config5 = run_config5(fm)
     launches.update(counts5)
     times_chain = time_chain(card, fm)
+
+    phase("12 FFT kernels vs plain")
+    fft_agree = {name: FloatAgreement()
+                 for name in ("fft_rows", "osfilt", "osfilt_stream")}
+    fft_agree_u8 = {name: U8Agreement() for name in ("osfilt", "osfilt_stream")}
+    check_fft_kernels(fft_agree, fft_agree_u8)
+
+    phase("13 config 4")
+    counts4, config4, (x4_u8, x4, h4) = run_config4(fft_agree)
+    launches.update(counts4)
+    counts_chain, chain_fft = run_chain_fft(fft_agree, fm)
+    launches.update(counts_chain)
     del fm
+    times_fft = time_fft(card, fft_agree, x4_u8, x4, h4)
+    del x4_u8, x4
 
     def counted(name: str) -> dict:
         runs = {f"launches_{run}": run_counts[name]
@@ -1471,7 +1910,10 @@ def main() -> int:
         **{name: bound(*times_chain["work"][name], "f32")
            for name in ("fir_float", "resample", "chain_fused",
                         "chain_fused_bf16")},
+        **{name: bound(*work, "f32")
+           for name, work in times_fft["work"].items()},
     }
+    bounds["fft_rows"] = bounds[f"fft_rows_{FFT_TIMING_SHAPES[0][1]}"]
 
     def bounded(name: str) -> dict:
         """The bound, the bytes it counts and those bytes' time at the
@@ -1564,6 +2006,50 @@ def main() -> int:
         "ms_chain_auto": times_chain["chain_auto"],
         "ms_chain_staged": times_chain["chain_staged"],
         "ms_demod": times_chain["demod"], "copy_ms": times_chain["copy"]})
+
+    def fft_kernel(name: str, source: str, replaces: int, also: tuple,
+                   ms: float, plain_ms: float, library_ms: float,
+                   **extra) -> dict:
+        return {
+            "name": name, "route": "cuda",
+            "source": f"warmup_fir_filter_tpu_torch/csrc/{source}",
+            "replaces": f"warmup_fir_filter_tpu/kernels/fft_pallas.py:{replaces}",
+            "also_replaces": [f"warmup_fir_filter_tpu/kernels/fft_pallas.py:"
+                              f"{line}" for line in also],
+            **counted(name), "max_abs_err": fft_agree[name].max_abs_err,
+            "min_snr_db": finite(fft_agree[name].min_snr_db),
+            "comparisons": fft_agree[name].count, "ms": ms,
+            "plain_ms": plain_ms, **bounded(name), "library_ms": library_ms,
+            **extra}
+
+    (_, n_a), (_, n_b) = FFT_TIMING_SHAPES
+    t = times_fft
+    kernels += [
+        fft_kernel("fft_rows", "fft_rows.cu", 406, (418, 424),
+                   t[f"fft_rows_{n_a}"], t[f"fft_rows_plain_{n_a}"],
+                   t[f"torch_fft_{n_a}"], shape=list(FFT_TIMING_SHAPES[0]),
+                   **{f"{key}_{n_b}": value for key, value in (
+                       ("ms", t[f"fft_rows_{n_b}"]),
+                       ("plain_ms", t[f"fft_rows_plain_{n_b}"]),
+                       ("library_ms", t[f"torch_fft_{n_b}"]),
+                       ("bound_ms", bounds[f"fft_rows_{n_b}"]["bound_ms"]))}),
+        fft_kernel("osfilt", "osfilt.cu", 519, (436,), t["osfilt"],
+                   t["osfilt_plain"], t["conv1d"], nfft=CONFIG4_PINNED_NFFT,
+                   max_abs_err_u8=fft_agree_u8["osfilt"].max_abs_err,
+                   share_differing_u8=fft_agree_u8["osfilt"].max_share),
+        fft_kernel("osfilt_stream", "osfilt_stream.cu", 622, (),
+                   t["osfilt_stream"], t["osfilt_stream_plain"], t["conv1d"],
+                   ms_u8=t["osfilt_stream_u8"],
+                   bound_ms_u8=bounds["osfilt_stream_u8"]["bound_ms"],
+                   torch_fft_overlap_save_ms=t["torch_fft_overlap_save"],
+                   entry_ms=t["entry"], copy_ms=t["copy"],
+                   max_abs_err_u8=fft_agree_u8["osfilt_stream"].max_abs_err,
+                   share_differing_u8=fft_agree_u8["osfilt_stream"].max_share,
+                   config4={key: value for key, value in config4.items()
+                            if key != "launches"},
+                   chain_pallas_vs_staged_snr_db=chain_fft[
+                       "chain_pallas_snr_db"]),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,10 @@
   lengths: SNR > 95 dB (the JAX fused-vs-staged bound, ``:92``);
 - ``rs_bounds`` windows, the first-sample rule and the ``"bf16"`` storage
   mode (> 40 dB against the f32 chain, ``tests/test_demod_chain.py:214``);
-- the port's ``chain_forward`` against the JAX one for every backend it
-  ports (SNR > 90 dB: f32 paths against the JAX package's bf16x3 ones,
-  ~114 dB against f64), and the ``"pallas"`` backend raising;
+- the port's ``chain_forward`` against the JAX one for every backend
+  (SNR > 90 dB: f32 paths against the JAX package's bf16x3 ones, ~114 dB
+  against f64; ``"pallas"`` in ``tests/test_torch_fft.py``), and an
+  unknown backend raising;
 - ``ops/fftfilt.py`` at the bounds of ``tests/test_fftfilt.py:23-33`` and
   ``ops/demod.py`` at those of ``tests/test_demod_chain.py``;
 - the per-thread cores of kernels H, I and J (``csrc/wft_chain.cuh``)
@@ -209,10 +210,8 @@ def test_chain_recovers_lowpass_message():
     assert np.corrcoef(out[0, core], expected[core])[0, 1] > 0.99
 
 
-def test_pallas_backend_raises(rng):
+def test_unknown_backend_raises(rng):
     re, im = _planes(*_fm(rng, 8, 3000))
-    with pytest.raises(NotImplementedError, match="K13"):
-        chain_forward(re, im, ChainConfig(channelizer_backend="pallas"))
     with pytest.raises(ValueError, match="channelizer_backend"):
         chain_forward(re, im, ChainConfig(channelizer_backend="cuda"))
 

@@ -108,6 +108,25 @@ _SIGNATURES = {
          _INT, _INT, _VOIDP, _INT, _LL, _LL, ctypes.c_float, _INT, _VOIDP],
         _INT,
     ),
+    # xr, xi (null for a real input), yr, yi, rows, log2 nfft, twiddles
+    # (device), inverse, stream
+    "wft_fft_rows": (
+        [_VOIDP, _VOIDP, _VOIDP, _VOIDP, _LL, _INT, _VOIDP, _INT, _VOIDP],
+        _INT,
+    ),
+    # segments, y, batch, log2 nfft, twiddles, spectrum (device),
+    # seg_is_u8, out_u8, stream
+    "wft_osfilt": (
+        [_VOIDP, _VOIDP, _LL, _INT, _VOIDP, _VOIDP, _INT, _INT, _VOIDP],
+        _INT,
+    ),
+    # x, y, channels, tx, out_len, hop, base, twiddles, spectrum (device),
+    # x_is_u8, out_u8, stream
+    "wft_osfilt_stream": (
+        [_VOIDP, _VOIDP, _LL, _LL, _LL, _INT, _INT, _VOIDP, _VOIDP, _INT,
+         _INT, _VOIDP],
+        _INT,
+    ),
     "wft_error_string": ([_INT], ctypes.c_char_p),
 }
 

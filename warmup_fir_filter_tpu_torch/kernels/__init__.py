@@ -11,6 +11,16 @@
 - ``fir2d``        kernels E, F and G (``csrc/fir2d_frame.cu``,
                    ``csrc/fir2d_bf16.cu``), port the TPU 2-D frame kernels
                    K6/K7 and the bf16 kernel K8 (``fir2d_mxu.py``);
+- ``fir_float``    kernel H (``csrc/fir_float.cu``), ports the TPU float
+                   FIR kernels K9 (``fir_float_mxu.py``), L ≤ 257;
+- ``resample``     kernel I (``csrc/resample.cu``), ports the TPU polyphase
+                   resampler K10 (``resample_mxu.py``);
+- ``chain_fused``  kernel J (``csrc/chain_fused.cu``), ports the TPU fused
+                   chain K11 (``chain_fused.py``);
+- ``fft``          kernels K, L and M (``csrc/fft_rows.cu``,
+                   ``csrc/osfilt.cu``, ``csrc/osfilt_stream.cu``), port the
+                   TPU row FFT K12, the framed overlap-save filter K13 and
+                   the stream overlap-save filter K14 (``fft_pallas.py``);
 - ``dispatch``     ``prepare_fixed_fir``, ``fir1d_fixed_rows_auto`` and
                    ``fir2d_fixed_auto``.
 """

@@ -11,13 +11,15 @@ of shape (channels, time), on the planes' device.
   kernel on its accelerator; otherwise the staged path: ``resample_poly``
   (kernel I on the card), the ``"mxu"`` channelizer (kernel H), then
   ``fm_demodulate``.  Above 257 channelizer taps ``"auto"`` takes the
-  ``torch.fft`` channelizer, as the JAX ``"auto"`` does off its
-  accelerator;
+  ``"pallas"`` channelizer on CUDA planes and the ``torch.fft`` one on CPU
+  planes, as the JAX ``"auto"`` does on and off its accelerator;
 - ``"fused"`` forces kernel J and raises where it does not apply;
 - ``"mxu"`` and ``"jnp"`` force a staged channelizer: kernel H, or the
   ``torch.fft`` overlap-save of ``ops/fftfilt.py``;
-- ``"pallas"`` (the JAX package's Pallas FFT channelizer, K13) raises
-  :class:`NotImplementedError`: it is still to be ported;
+- ``"pallas"`` forces the FFT overlap-save of ``kernels/fft.py``
+  (``fir_overlap_save_pallas``): kernel M up to 257 taps, the framed
+  kernel L beyond.  It runs once over the I and Q planes stacked as rows,
+  the same row-wise function as the JAX package's two calls;
 - ``use_fft_channelizer=False`` channelizes with the plain f32 FIR.
 
 The sharded chains (``chain_forward_sharded``,
@@ -35,6 +37,7 @@ from warmup_fir_filter_tpu_torch.kernels.chain_fused import (
     chain_forward_fused,
     chain_fused_supported,
 )
+from warmup_fir_filter_tpu_torch.kernels.fft import fir_overlap_save_pallas
 from warmup_fir_filter_tpu_torch.kernels.fir_band import MAX_TAPS
 from warmup_fir_filter_tpu_torch.kernels.fir_float import fir1d_ideal_rows_band
 from warmup_fir_filter_tpu_torch.ops.demod import fm_demodulate
@@ -107,17 +110,15 @@ def chain_forward(re: torch.Tensor, im: torch.Tensor,
     if config.use_fft_channelizer:
         backend = config.channelizer_backend
         if backend == "auto":
-            backend = "mxu" if config.channelizer_taps <= MAX_TAPS else "jnp"
+            backend = "mxu" if config.channelizer_taps <= MAX_TAPS else (
+                "pallas" if re.device.type == "cuda" else "jnp")
         if backend == "mxu":
             # One pass of kernel H over both I/Q planes.
             both = fir1d_ideal_rows_band(both_rs, h_ch)
             re_ch, im_ch = both[:channels], both[channels:]
         elif backend == "pallas":
-            raise NotImplementedError(
-                "channelizer_backend='pallas' is the JAX package's Pallas "
-                "FFT channelizer (K13 in ROADMAP.md's kernel table), which "
-                "the port has not ported yet; use 'jnp' (torch.fft) or "
-                "'mxu' (kernel H)")
+            both = fir_overlap_save_pallas(both_rs, h_ch)
+            re_ch, im_ch = both[:channels], both[channels:]
         elif backend == "jnp":
             re_ch = fir_overlap_save(re_rs, h_ch)
             im_ch = fir_overlap_save(im_rs, h_ch)

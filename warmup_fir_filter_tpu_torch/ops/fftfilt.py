@@ -7,9 +7,10 @@ an SNR bound, not bit-equality.  The framework-wide same-mode contract
 length-``nfft`` segment starting at ``n0 - (L - 1) + center`` in the
 zero-padded stream and discarding the first ``L - 1`` circular outputs.
 
-No kernel of the port runs here: the JAX package's Pallas FFT kernels
-(K12-K14) are still to be ported, so on a CUDA tensor the transforms are
-``torch.fft``'s.
+The transforms here are ``torch.fft``'s on either device.  The port's own
+FFT kernels (K, L and M, the counterparts of the JAX package's Pallas FFT
+kernels K12-K14) and the chain's ``"pallas"`` channelizer live in
+``kernels/fft.py``.
 """
 
 from __future__ import annotations
