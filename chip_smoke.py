@@ -1770,12 +1770,18 @@ def time_fft(card: str, agree: dict, x_u8: torch.Tensor, x: torch.Tensor,
     def transform_ops(n: int) -> float:
         return 5.0 * n * np.log2(n)
 
-    filter_ops = 2 * transform_ops(STREAM_NFFT) + 6 * STREAM_NFFT
+    def filter_ops(n: int) -> float:
+        """A real window or segment: the filter is real, so two of them
+        share one complex forward transform, product and inverse, and
+        each costs half of 2 * transform_ops(n) + 6 n."""
+        return transform_ops(n) + 3.0 * n
+
     result["work"] = {
-        "osfilt_stream": (2.0 * x.numel() * 4, windows * filter_ops),
-        "osfilt_stream_u8": (2.0 * x.numel(), windows * filter_ops),
-        "osfilt": (2.0 * seg.numel() * 4, seg.shape[0]
-                   * (2 * transform_ops(nfft) + 6 * nfft)),
+        "osfilt_stream": (2.0 * x.numel() * 4,
+                          windows * filter_ops(STREAM_NFFT)),
+        "osfilt_stream_u8": (2.0 * x.numel(),
+                             windows * filter_ops(STREAM_NFFT)),
+        "osfilt": (2.0 * seg.numel() * 4, seg.shape[0] * filter_ops(nfft)),
         **{f"fft_rows_{n}": (16.0 * xr.numel(), xr.shape[0] * transform_ops(n))
            for n, (xr, _) in planes.items()},
     }

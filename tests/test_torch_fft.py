@@ -487,13 +487,9 @@ void dif(Cf* buf, int log_n, const Cf* tw, bool inverse, int count) {
 }
 
 void filter(Cf* buf, int log_n, const Cf* tw, const Cf* spec, int count) {
-  dif(buf, log_n, tw, false, count);
-  for (int t = 0; t < kFftThreads; ++t) {
-    wft::fft_filter_thread(buf, log_n, spec, count, t, kFftThreads);
-  }
-  for (int s = wft::fft_steps(log_n) - 1; s >= 0; --s) {
+  for (int ph = 0; ph < wft::fft_filter_phases(log_n); ++ph) {
     for (int t = 0; t < kFftThreads; ++t) {
-      wft::fft_dit_step(buf, log_n, s, tw, true, count, t, kFftThreads);
+      wft::fft_filter_phase(buf, log_n, ph, tw, spec, count, t, kFftThreads);
     }
   }
 }

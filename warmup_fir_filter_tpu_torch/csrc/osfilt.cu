@@ -21,11 +21,11 @@
 //
 // What bounds it on an H100: at config 4 with nfft = 2,048 pinned, 80,576
 // segments of 2,048 f32 read and written are 1.32 GB (0.39 ms at
-// 3.35 TB/s); counting 5 n log2 n per complex transform, two transforms
-// and 6 n for the product per segment, 19.1 G operations (0.29 ms at
-// 67 TFLOP/s): memory is the roof.  Two segments share a transform here,
-// so the kernel issues half those operations; it is bound by
-// shared-memory traffic, a pass per two stages.
+// 3.35 TB/s), the roof.  Counting 5 n log2 n per complex transform and
+// 6 n for its product with the spectrum, with two real segments to one
+// complex forward, product and inverse, a segment is 5 n log2 n + 3 n and
+// the 80,576 segments 9.6 G operations (0.14 ms at 67 TFLOP/s).  The
+// kernel is bound by shared-memory traffic, a pass per two stages.
 
 #include <climits>
 #include <cstdint>
@@ -49,19 +49,13 @@ osfilt_kernel(const T* __restrict__ seg, U* __restrict__ y, long long batch,
   wft::Cf* tw_s = buf + count * wft::fft_slots(1 << log_n);
   const int t = threadIdx.x;
   const long long s0 = 2LL * blockIdx.x * count;
-  const int steps = wft::fft_steps(log_n);
   wft::fft_stage_twiddles(tw, tw_s, log_n, t, wft::kFftThreads);
   wft::osfilt_load_thread(seg, batch, log_n, s0, buf, count, t,
                           wft::kFftThreads);
-  for (int s = 0; s < steps; ++s) {
+  for (int ph = 0; ph < wft::fft_filter_phases(log_n); ++ph) {
     __syncthreads();
-    wft::fft_dif_step(buf, log_n, s, tw_s, false, count, t, wft::kFftThreads);
-  }
-  __syncthreads();
-  wft::fft_filter_thread(buf, log_n, spec, count, t, wft::kFftThreads);
-  for (int s = steps - 1; s >= 0; --s) {
-    __syncthreads();
-    wft::fft_dit_step(buf, log_n, s, tw_s, true, count, t, wft::kFftThreads);
+    wft::fft_filter_phase(buf, log_n, ph, tw_s, spec, count, t,
+                          wft::kFftThreads);
   }
   __syncthreads();
   wft::osfilt_store_thread(buf, batch, log_n, s0, y, count, t,

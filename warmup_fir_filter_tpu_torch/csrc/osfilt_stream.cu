@@ -22,12 +22,13 @@
 // 512 - hop samples, so the re-reads hit the L1 and L2 caches.
 //
 // What bounds it on an H100, config 4 (16 x 10,000,000 f32 in and out,
-// 63 taps, hop 2): 1.28 GB read and written (0.38 ms at 3.35 TB/s);
-// counting 5 n log2 n per complex transform, two transforms and 6 n for the
-// product per window, 625,008 windows are 30.7 G operations (0.46 ms at
-// 67 TFLOP/s).  Two windows share a transform here, so the kernel issues
-// half those operations; it is bound by shared-memory traffic, a pass per
-// two stages.
+// 63 taps, hop 2): 1.28 GB read and written (0.38 ms at 3.35 TB/s), the
+// roof.  The operations count 5 n log2 n per complex transform and 6 n for
+// its product with the spectrum; two real windows share one complex
+// forward, product and inverse, so a window is 5 n log2 n + 3 n and the
+// 625,008 windows 15.4 G operations (0.23 ms at 67 TFLOP/s; with u8 in and
+// out, 0.32 GB, that is the roof).  The kernel is bound by shared-memory
+// traffic, a pass per two stages.
 
 #include <climits>
 #include <cstdint>
@@ -55,22 +56,15 @@ osfilt_stream_kernel(const T* __restrict__ x, U* __restrict__ y,
   const int t = threadIdx.x;
   const long long w0 = 2LL * blockIdx.x * count;
   const wft::StreamPlan p{tx, out_len, HOP, base};
-  const int steps = wft::fft_steps(kLog);
   wft::fft_stage_twiddles(tw, tw_s, kLog, t, wft::kFftThreads);
   for (long long ch = blockIdx.y; ch < channels; ch += gridDim.y) {
     __syncthreads();  // the twiddles are staged, the last channel stored
     wft::stream_load_thread(x + ch * tx, p, w0, buf, count, t,
                             wft::kFftThreads);
-    for (int s = 0; s < steps; ++s) {
+    for (int ph = 0; ph < wft::fft_filter_phases(kLog); ++ph) {
       __syncthreads();
-      wft::fft_dif_step(buf, kLog, s, tw_s, false, count, t,
-                        wft::kFftThreads);
-    }
-    __syncthreads();
-    wft::fft_filter_thread(buf, kLog, spec, count, t, wft::kFftThreads);
-    for (int s = steps - 1; s >= 0; --s) {
-      __syncthreads();
-      wft::fft_dit_step(buf, kLog, s, tw_s, true, count, t, wft::kFftThreads);
+      wft::fft_filter_phase(buf, kLog, ph, tw_s, spec, count, t,
+                            wft::kFftThreads);
     }
     __syncthreads();
     wft::stream_store_thread(buf, p, w0, y + ch * out_len, count, t,

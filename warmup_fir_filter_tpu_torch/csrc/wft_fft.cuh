@@ -188,6 +188,26 @@ WFT_INLINE void fft_filter_thread(Cf* buf, int log_n, const Cf* spec,
   }
 }
 
+// The filter of kernels L and M between their load and store: the DIF
+// forward, the product with the spectrum and the DIT inverse, as
+// fft_filter_phases(log_n) phases with a barrier before each.  Phase ph of
+// thread t.
+WFT_INLINE int fft_filter_phases(int log_n) {
+  return 2 * fft_steps(log_n) + 1;
+}
+WFT_INLINE void fft_filter_phase(Cf* buf, int log_n, int ph, const Cf* tw,
+                                 const Cf* spec, int count, int t,
+                                 int threads) {
+  const int steps = fft_steps(log_n);
+  if (ph < steps) {
+    fft_dif_step(buf, log_n, ph, tw, false, count, t, threads);
+  } else if (ph == steps) {
+    fft_filter_thread(buf, log_n, spec, count, t, threads);
+  } else {
+    fft_dit_step(buf, log_n, 2 * steps - ph, tw, true, count, t, threads);
+  }
+}
+
 // The u8 output stage of the TPU kernels (fft_pallas.py:542-544): round
 // half up, saturate to [0, 255]; NaN stores 0.
 WFT_INLINE uint8_t round_u8(float v) {
