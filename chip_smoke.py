@@ -15,7 +15,9 @@ of them pass:
 3. kernels  each kernel against its plain PyTorch version (``torch.equal``,
             tolerance 0) over taps × widths × Q-formats and geometries, at
             the main paths' shapes, and against the host golden on the
-            small shapes; for the 2-D kernels E, F and G (the plain
+            small shapes (kernel A either side of its 32-tap short-tap
+            crossover, at widths around its 16-byte chunks and row counts
+            that fill no whole CTA); for the 2-D kernels E, F and G (the plain
             versions run on the card too) the bank and random filters up
             to 33 × 257 over widths 1-4,099, whole frames compared (kernel
             G within 1 where its f32 sums can round).
@@ -47,7 +49,8 @@ of them pass:
             still a frame, kernel G's frames equal to kernel F's.
 9. times    CUDA-event medians (per call, over windows of back-to-back
             calls) at 19,456 × 8,192 uint8, Q4.12: kernels A and B and the
-            plain direct path at 5 taps; kernels C and B at 1,001 and
+            plain direct path at 5 taps; kernel A at 3-257 taps and on the
+            5-tap stream's window rows; kernels C and B at 1,001 and
             4,096 taps, the plain path over single calls; kernel D and its
             plain version at the stream's geometry; the 5-tap stream's
             per-block split into kernel D, the FIR and the checksums; at
@@ -72,8 +75,9 @@ of them pass:
             chains end to end and a ``copy_`` of the input.
 12. FFT    kernels K (row FFT), L (framed overlap-save filter) and M
     kernels (stream overlap-save filter) against their float64 plain
-            versions on the card, SNR >= 120 dB: K over nfft 2-16,384 ×
-            batches 1, 5, 1,000 × complex, real and inverse rows, also
+            versions on the card, SNR >= 120 dB: K over every nfft from 2
+            to 16,384 (each its own radix plan) × batches 1, 5, 1,000 ×
+            complex, real and inverse rows, also
             within 2e-4·max|want| of the float64 FFT; L over pinned nfft
             128-4,096 × 2, 9, 63 taps and 259 and 2,048 taps at their
             automatic nfft; M over the stream cases of
@@ -88,10 +92,11 @@ of them pass:
             of 2,500,000 with 31-sample halos (``off=31``) within 90 dB of
             it; the quantized u8 path through kernel M against kernel A
             (within 1 on under 2%); the filter's frequency response
-            measured through ``fft_rows_pallas`` (kernel K) within 0.01 of
+            measured through ``fft_rows_pallas`` (kernel K) within 1e-3 of
             the design; the chain on config 5's planes with the
             ``"pallas"`` channelizer (kernels I and M) and a 259-tap
-            ``"auto"`` one (I and L); then CUDA-event medians of K, L and M,
+            ``"auto"`` one (I and L); then CUDA-event medians of K (at
+            8,192 × 2,048, 1,024 × 16,384 and 65,536 × 256), L and M,
             their plain versions, ``torch.fft.fft``, ``F.conv1d`` (TF32
             off), the ``torch.fft`` overlap-save and a ``copy_``.
 
@@ -241,8 +246,20 @@ WORK_DIR = REPO_ROOT / "artifacts" / "chip_smoke"
 #: tests/test_qformat_sweep.py:30-40 (wrap-needing and multi-digit ones).
 FORMATS = ((8, 4, 32), (8, 7, 16), (16, 12, 32), (16, 12, 20), (16, 8, 24),
            (16, 15, 31), (32, 24, 32), (32, 12, 28), (16, 1, 8))
-BAND_TAPS = (1, 2, 3, 4, 5, 63, 129, 256, 257)
-BAND_WIDTHS = (1, 64, 127, 150, 400, 4499, 32768, 32769, 40000)
+#: Kernel A's grid: its short-tap route up to 32 taps, the digit planes
+#: beyond (16 and 32 just under the crossover, 33 just over); widths at the
+#: 16-byte chunk and around it (15, 16, 17, 31), ragged ones, the stream's
+#: window rows (16,256) and K2's regime.
+BAND_TAPS = (1, 2, 3, 4, 5, 16, 32, 33, 63, 129, 256, 257)
+BAND_WIDTHS = (1, 15, 16, 17, 31, 64, 127, 150, 400, 4499, 8192, 16256,
+               32768, 32769, 40000)
+#: Rows of kernel A's grid up to this width: no multiple of a CTA's rows
+#: (8, digit planes) or chunks (512 of 16 bytes, short taps).
+BAND_ODD_ROWS = 13
+BAND_ODD_ROWS_MAX_WIDTH = 127
+#: Kernel A's timed tap counts at BENCH_SHAPE: the banks, either side of
+#: the short-tap crossover, and the digit planes' range.
+BAND_TIMING_TAPS = (3, 5, 16, 32, 33, 63, 129, 257)
 DIRECT_TAPS = (1, 5, 258, 300, 4097, 5000)
 DIRECT_WIDTHS = (1, 127, 4499, 40000)
 ROWS = 4
@@ -338,7 +355,7 @@ KERNELS = ("fir_band", "fir_direct", "fir_window", "window_rows",
 #: Kernel K's grid (nfft × batch, complex, real and inverse rows) and
 #: kernel L's (pinned nfft × taps, then long filters at their automatic
 #: nfft: 4,096 and 16,384).
-FFT_SIZES = (2, 128, 256, 512, 2048, 16384)
+FFT_SIZES = tuple(1 << b for b in range(1, 15))  # each has its radix plan
 FFT_BATCHES = (1, 5, 1000)
 OSFILT_SIZES = (128, 256, 512, 2048, 4096)
 OSFILT_TAPS = (2, 9, 63)
@@ -361,8 +378,9 @@ CONFIG4_SHARDS = 4
 CONFIG4_PINNED_NFFT = 2048
 #: Rows of the frequency-response measurement through kernel K.
 RESPONSE_NFFT = 8192
-#: Kernel K's timed shapes (rows, nfft), complex.
-FFT_TIMING_SHAPES = ((8192, 2048), (1024, 16384))
+#: Kernel K's timed shapes (rows, nfft), complex: the first is the
+#: kernels line's headline.
+FFT_TIMING_SHAPES = ((8192, 2048), (1024, 16384), (65536, 256))
 FFT_TIMING_REPS = 7
 FFT_TIMING_LAUNCHES = 5
 PLAIN_FFT_CALLS = 2
@@ -472,8 +490,9 @@ def check_kernels(agree: dict) -> None:
         fir = FixedFir1d.from_numpy(h, qf, "cuda")
         fir_cpu = FixedFir1d.from_numpy(h, qf, "cpu")
         for n in BAND_WIDTHS:
-            x = rng.integers(0, 256, size=(ROWS, n), dtype=np.uint8)
-            label = (f"band L={num_taps} N={n} fmt=({qf.coeff_bits},"
+            rows = BAND_ODD_ROWS if n <= BAND_ODD_ROWS_MAX_WIDTH else ROWS
+            x = rng.integers(0, 256, size=(rows, n), dtype=np.uint8)
+            label = (f"band L={num_taps} {rows}x{n} fmt=({qf.coeff_bits},"
                      f"{qf.frac_bits},{qf.acc_bits})")
             got = fir(torch.from_numpy(x).cuda())
             agree_band.check(got, fir_band_plain(torch.from_numpy(x),
@@ -1044,6 +1063,50 @@ def time_kernels(card: str) -> dict:
     return medians
 
 
+def time_band(card: str) -> dict:
+    """Kernel A at BENCH_SHAPE for each of BAND_TIMING_TAPS (the banks'
+    sharpen filters at 3 and 5 taps, Hamming low-passes beyond) and at 5
+    taps on the stream's (4,000, 16,256) window rows, each held against
+    the plain int32 path on the card first; windows interleaved within
+    the short-tap counts and within the rest."""
+    qf = QFormat()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    x = torch.randint(0, 256, BENCH_SHAPE, dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    sub, _ = pick_window_split(STREAM_CHANNELS, STREAM_BLOCK, 5)
+    win = torch.randint(0, 256, (STREAM_CHANNELS * STREAM_BLOCK // sub,
+                                 sub + 256), dtype=torch.uint8, device="cuda",
+                        generator=gen)
+    runs = {}
+    for taps in BAND_TIMING_TAPS:
+        h = (np.asarray(FILTER_BANKS[taps]["sharpen"]) if taps in (3, 5)
+             else design_lowpass(taps, 0.2))
+        fir = FixedFir1d.from_numpy(h, qf, "cuda")
+        if not torch.equal(fir(x), fir1d_fixed_rows_torch(x, h, qf)):
+            raise AssertionError(f"fir_band != plain int32 path at {taps} "
+                                 "taps")
+        runs[taps] = lambda f=fir: f(x)
+    fir5 = FixedFir1d.from_numpy(FILTER_BANKS[5]["sharpen"], qf, "cuda")
+    if not torch.equal(fir5(win), fir1d_fixed_rows_torch(
+            win, FILTER_BANKS[5]["sharpen"], qf)):
+        raise AssertionError("fir_band != plain int32 path on the windows")
+    runs["windows"] = lambda: fir5(win)
+    # The short-tap route's calls apart from the digit planes' calls, which
+    # take 20-200 times as long and would warm the card between windows.
+    short = ("windows", *(t for t in BAND_TIMING_TAPS if t <= 32))
+    med = median_ms({k: v for k, v in runs.items() if k in short},
+                    TIMING_REPS, TIMING_LAUNCHES)
+    med.update(median_ms({k: v for k, v in runs.items() if k not in short},
+                         TIMING_REPS, TIMING_LAUNCHES))
+    for run, (m, lo, hi) in med.items():
+        shape = (f"{win.shape[0]}x{win.shape[1]} u8, 5-tap sharpen"
+                 if run == "windows" else
+                 f"{BENCH_SHAPE[0]}x{BENCH_SHAPE[1]} u8, {run} taps")
+        print(f"[chip_smoke] time fir_band {run}: median {m:.4f} ms (min "
+              f"{lo:.4f}, max {hi:.4f}) [{shape}, Q4.12; {card}]", flush=True)
+    return {run: m for run, (m, _, _) in med.items()}
+
+
 def event_ms(fn, calls: int) -> float:
     """Device time per call of ``calls`` back-to-back calls of ``fn``."""
     start = torch.cuda.Event(enable_timing=True)
@@ -1548,7 +1611,7 @@ def run_config4(agree: dict) -> tuple[dict, dict, tuple]:
     against the unsharded output); the quantized u8 path against kernel A
     (within 1 on under 2%, tests/test_fft_pallas.py:130-132); the filter's
     frequency response measured through ``fft_rows_pallas`` (kernel K),
-    within 0.01 of ``|DFT(h)|`` at every bin."""
+    within 1e-3 of ``|DFT(h)|`` at every bin."""
     rng = np.random.default_rng(CONFIG4_SEED)
     x_u8 = torch.from_numpy(rng.integers(
         0, 256, size=(CONFIG4_CHANNELS, CONFIG4_TIME), dtype=np.uint8)).cuda()
@@ -1633,7 +1696,7 @@ def run_config4(agree: dict) -> tuple[dict, dict, tuple]:
             and result["shards_snr_db_vs_unsharded"] >= 90.0
             and result["u8_max_diff_vs_kernel_a"] <= 1
             and result["u8_share_differing_vs_kernel_a"] < 0.02
-            and result["response_max_err"] < 0.01):
+            and result["response_max_err"] < 1e-3):
         raise AssertionError(f"config 4 failed a gate: {result}")
     return counts, result, (x_u8, x, h)
 
@@ -1727,7 +1790,6 @@ def time_fft(card: str, agree: dict, x_u8: torch.Tensor, x: torch.Tensor,
         raise AssertionError(f"F.conv1d is not config 4's function (SNR "
                              f"{conv_snr:.1f} dB against kernel M)")
     copy_dst = torch.empty_like(x)
-    (n_a, (ar, ai)), (n_b, (br, bi)) = planes.items()
     out_len = x.shape[1]
     runs = {
         "osfilt_stream": lambda: osfilt_stream(x, tables, off=0,
@@ -1735,10 +1797,10 @@ def time_fft(card: str, agree: dict, x_u8: torch.Tensor, x: torch.Tensor,
         "osfilt_stream_u8": lambda: osfilt_stream(
             x_u8, tables, off=0, out_len=out_len, out_u8=True),
         "osfilt": lambda: osfilt(seg, spec, out_u8=False),
-        f"fft_rows_{n_a}": lambda: fft_rows(ar, ai, inverse=False),
-        f"fft_rows_{n_b}": lambda: fft_rows(br, bi, inverse=False),
-        f"torch_fft_{n_a}": lambda: torch.fft.fft(cplx[n_a]),
-        f"torch_fft_{n_b}": lambda: torch.fft.fft(cplx[n_b]),
+        **{f"fft_rows_{n}": (lambda p=p: fft_rows(*p, inverse=False))
+           for n, p in planes.items()},
+        **{f"torch_fft_{n}": (lambda c=c: torch.fft.fft(c))
+           for n, c in cplx.items()},
         "conv1d": lambda: F.conv1d(x3, weight, padding=left),
         "torch_fft_overlap_save": lambda: fir_overlap_save(x, h),
         "entry": lambda: fir_overlap_save_pallas(x, h),
@@ -1749,10 +1811,8 @@ def time_fft(card: str, agree: dict, x_u8: torch.Tensor, x: torch.Tensor,
         "osfilt_stream_plain": lambda: osfilt_stream_plain(
             x, tables, off=0, out_len=out_len),
         "osfilt_plain": lambda: osfilt_plain(seg, spec),
-        f"fft_rows_plain_{n_a}": lambda: fft_rows_plain(ar, ai,
-                                                        inverse=False),
-        f"fft_rows_plain_{n_b}": lambda: fft_rows_plain(br, bi,
-                                                        inverse=False),
+        **{f"fft_rows_plain_{n}": (lambda p=p: fft_rows_plain(
+            *p, inverse=False)) for n, p in planes.items()},
     }, 3, PLAIN_FFT_CALLS))
     shapes = {"osfilt": f"{seg.shape[0]} x {nfft} segments",
               **{f"{kind}_{n}": f"{xr.shape[0]} x {n} complex"
@@ -1852,6 +1912,7 @@ def main() -> int:
 
     phase("9 times")
     medians = time_kernels(card)
+    band_times = time_band(card)
     long_taps = time_long_taps(card)
     sustained_ms = (STREAM_CHANNELS * STREAM_BLOCK
                     / stream_5tap["msamples_per_s"] / 1e3)
@@ -1937,9 +1998,12 @@ def main() -> int:
          **counted("fir_band"),
          "max_abs_err": agree["fir_band"].max_abs_err,
          "comparisons": agree["fir_band"].count,
-         "ms": medians["fir_band"], "plain_ms": medians["torch_direct"],
+         "ms": band_times[5], "plain_ms": medians["torch_direct"],
          **bounded("fir_band"), "library_ms": None,
-         "ms_stream_windows": split["fir_band"]},
+         "ms_beside_plain": medians["fir_band"],
+         "ms_stream_windows": split["fir_band"],
+         "ms_stream_windows_alone": band_times["windows"],
+         **{f"ms_{taps}tap": band_times[taps] for taps in BAND_TIMING_TAPS}},
         {"name": "fir_direct", "route": "cuda",
          "source": "warmup_fir_filter_tpu_torch/csrc/fir_direct.cu",
          "replaces": "warmup_fir_filter_tpu/kernels/fir_pallas.py:62",
@@ -2028,17 +2092,18 @@ def main() -> int:
             "plain_ms": plain_ms, **bounded(name), "library_ms": library_ms,
             **extra}
 
-    (_, n_a), (_, n_b) = FFT_TIMING_SHAPES
+    (_, n_a), *others = FFT_TIMING_SHAPES
     t = times_fft
     kernels += [
         fft_kernel("fft_rows", "fft_rows.cu", 406, (418, 424),
                    t[f"fft_rows_{n_a}"], t[f"fft_rows_plain_{n_a}"],
                    t[f"torch_fft_{n_a}"], shape=list(FFT_TIMING_SHAPES[0]),
-                   **{f"{key}_{n_b}": value for key, value in (
-                       ("ms", t[f"fft_rows_{n_b}"]),
-                       ("plain_ms", t[f"fft_rows_plain_{n_b}"]),
-                       ("library_ms", t[f"torch_fft_{n_b}"]),
-                       ("bound_ms", bounds[f"fft_rows_{n_b}"]["bound_ms"]))}),
+                   **{f"{key}_{n}": value for _, n in others
+                      for key, value in (
+                          ("ms", t[f"fft_rows_{n}"]),
+                          ("plain_ms", t[f"fft_rows_plain_{n}"]),
+                          ("library_ms", t[f"torch_fft_{n}"]),
+                          ("bound_ms", bounds[f"fft_rows_{n}"]["bound_ms"]))}),
         fft_kernel("osfilt", "osfilt.cu", 519, (436,), t["osfilt"],
                    t["osfilt_plain"], t["conv1d"], nfft=CONFIG4_PINNED_NFFT,
                    max_abs_err_u8=fft_agree_u8["osfilt"].max_abs_err,

@@ -470,6 +470,7 @@ _HARNESS = r"""
 #include <vector>
 
 #include "wft_fft.cuh"
+#include "wft_fft_rows.cuh"
 
 using wft::Cf;
 using wft::kFftThreads;
@@ -478,14 +479,6 @@ namespace {
 
 // The steps of a CTA one after another, each over every thread: where the
 // kernels put a __syncthreads().
-void dif(Cf* buf, int log_n, const Cf* tw, bool inverse, int count) {
-  for (int s = 0; s < wft::fft_steps(log_n); ++s) {
-    for (int t = 0; t < kFftThreads; ++t) {
-      wft::fft_dif_step(buf, log_n, s, tw, inverse, count, t, kFftThreads);
-    }
-  }
-}
-
 void filter(Cf* buf, int log_n, const Cf* tw, const Cf* spec, int count) {
   for (int ph = 0; ph < wft::fft_filter_phases(log_n); ++ph) {
     for (int t = 0; t < kFftThreads; ++t) {
@@ -533,25 +526,65 @@ void stream_ctas(const T* x, U* y, long long channels,
   }
 }
 
+// fft_rows.cu's kernel: every thread of a CTA, phase by phase.
+template <int LOG_N, bool INV, int I>
+void rows_passes(Cf* v, float* smem, const Cf* tw) {
+  using Plan = wft::RowsPlan<LOG_N>;
+  auto sre = [&](int tid) { return smem + (tid / Plan::T) * Plan::stride; };
+  auto sim = [&](int tid) {
+    return smem + (Plan::rows + tid / Plan::T) * Plan::stride;
+  };
+  if constexpr (I > 0) {
+    for (int tid = 0; tid < Plan::threads; ++tid)
+      wft::rows_read<LOG_N>(v + tid * Plan::P, sre(tid), sim(tid),
+                            tid % Plan::T);
+  }
+  for (int tid = 0; tid < Plan::threads; ++tid)
+    wft::rows_pass<LOG_N, I, INV>(v + tid * Plan::P, tw, tid % Plan::T);
+  if constexpr (I + 1 < Plan::passes) {
+    for (int tid = 0; tid < Plan::threads; ++tid)
+      wft::rows_write<LOG_N, I>(v + tid * Plan::P, sre(tid), sim(tid),
+                                tid % Plan::T);
+    rows_passes<LOG_N, INV, I + 1>(v, smem, tw);
+  }
+}
+
+template <int LOG_N, bool INV>
+void rows_ctas(const float* xr, const float* xi, float* yr, float* yi,
+               long long rows, const Cf* tw) {
+  using Plan = wft::RowsPlan<LOG_N>;
+  std::vector<Cf> v(Plan::threads * Plan::P);
+  std::vector<float> smem(2 * Plan::rows * Plan::stride);
+  const float scale = INV ? 1.0f / static_cast<float>(Plan::n) : 1.0f;
+  for (long long r0 = 0; r0 < rows; r0 += Plan::rows) {
+    for (int tid = 0; tid < Plan::threads; ++tid)
+      wft::rows_load<LOG_N>(xr, xi, rows, r0 + tid / Plan::T, tid % Plan::T,
+                            v.data() + tid * Plan::P);
+    rows_passes<LOG_N, INV, 0>(v.data(), smem.data(), tw);
+    for (int tid = 0; tid < Plan::threads; ++tid)
+      wft::rows_store<LOG_N>(v.data() + tid * Plan::P, rows,
+                             r0 + tid / Plan::T, tid % Plan::T, scale, yr, yi);
+  }
+}
+
+template <int LOG_N>
+void rows_size(int log_n, bool inverse, const float* xr, const float* xi,
+               float* yr, float* yi, long long rows, const Cf* tw) {
+  if (log_n != LOG_N) {
+    if constexpr (LOG_N < wft::kFftMaxLog2)
+      rows_size<LOG_N + 1>(log_n, inverse, xr, xi, yr, yi, rows, tw);
+    return;
+  }
+  inverse ? rows_ctas<LOG_N, true>(xr, xi, yr, yi, rows, tw)
+          : rows_ctas<LOG_N, false>(xr, xi, yr, yi, rows, tw);
+}
+
 }  // namespace
 
 extern "C" void fft_rows_host(const float* xr, const float* xi, float* yr,
                               float* yi, long long rows, int log_n,
                               const Cf* tw, int inverse) {
-  const int count = wft::fft_per_cta(log_n);
-  std::vector<Cf> buf(count * wft::fft_slots(1 << log_n));
-  const float scale = inverse ? 1.0f / static_cast<float>(1 << log_n) : 1.0f;
-  for (long long r0 = 0; r0 < rows; r0 += count) {
-    for (int t = 0; t < kFftThreads; ++t) {
-      wft::fft_rows_load_thread(xr, xi, rows, log_n, r0, buf.data(), count, t,
-                                kFftThreads);
-    }
-    dif(buf.data(), log_n, tw, inverse != 0, count);
-    for (int t = 0; t < kFftThreads; ++t) {
-      wft::fft_rows_store_thread(buf.data(), rows, log_n, r0, scale, yr, yi,
-                                 count, t, kFftThreads);
-    }
-  }
+  rows_size<1>(log_n, inverse != 0, xr, xi, yr, yi, rows, tw);
 }
 
 extern "C" void osfilt_host(const void* seg, void* y, long long batch,
@@ -592,7 +625,8 @@ extern "C" void stream_host(const void* x, void* y, long long channels,
 
 @pytest.fixture(scope="module")
 def cores(tmp_path_factory):
-    """Kernels K, L and M's cores (``csrc/wft_fft.cuh``) built with g++."""
+    """Kernel K's core (``csrc/wft_fft_rows.cuh``) and kernels L and M's
+    (``csrc/wft_fft.cuh``) built with g++."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
     work = tmp_path_factory.mktemp("fft_cores")
@@ -609,10 +643,10 @@ def cores(tmp_path_factory):
     return lib
 
 
-@pytest.mark.parametrize("nfft", [2, 4, 8, 128, 256, 512, 2048, 16384])
+@pytest.mark.parametrize("nfft", [1 << b for b in range(1, 15)])
 def test_fft_rows_core(cores, rng, nfft):
-    """Complex, real and inverse rows; batches of 1 and 5 against the
-    4,096-point CTA (several rows a CTA below 4,096 points)."""
+    """Complex, real and inverse rows at every size's radix plan; batches
+    of 1 and 5 against CTAs of one row (n >= 2,048) or of several."""
     tw = fft.fft_twiddles(nfft)
     for batch in (1, 5):
         for mode in ("complex", "real", "inverse"):

@@ -16,6 +16,7 @@ import pytest
 
 import warmup_fir_filter_tpu.models.filters as jax_filters
 import warmup_fir_filter_tpu.models.golden as jax_golden
+import warmup_fir_filter_tpu.models.reference_api as jax_reference_api
 import warmup_fir_filter_tpu.ops.qformat as jax_qformat
 import warmup_fir_filter_tpu.ops.validation as jax_validation
 import warmup_fir_filter_tpu.pipeline.analysis as jax_analysis
@@ -26,6 +27,7 @@ import warmup_fir_filter_tpu.pipeline.synthetic as jax_synthetic
 import warmup_fir_filter_tpu.utils.profiling as jax_profiling
 import warmup_fir_filter_tpu_torch.models.filters as port_filters
 import warmup_fir_filter_tpu_torch.models.golden as port_golden
+import warmup_fir_filter_tpu_torch.models.reference_api as port_reference_api
 import warmup_fir_filter_tpu_torch.ops.qformat as port_qformat
 import warmup_fir_filter_tpu_torch.ops.validation as port_validation
 import warmup_fir_filter_tpu_torch.pipeline.analysis as port_analysis
@@ -40,7 +42,8 @@ from warmup_fir_filter_tpu_torch.pipeline.artifacts import ArtifactStore
 REPO_ROOT = Path(__file__).resolve().parent.parent
 #: Modules copied verbatim apart from their imports.
 VERBATIM = ("ops/qformat.py", "ops/validation.py", "models/filters.py",
-            "models/golden.py", "pipeline/artifacts.py", "pipeline/report.py",
+            "models/golden.py", "models/reference_api.py",
+            "pipeline/artifacts.py", "pipeline/report.py",
             "pipeline/analysis.py", "pipeline/restore.py",
             "pipeline/synthetic.py", "utils/imageio.py", "utils/logging.py")
 FORMATS = [(16, 12, 32), (8, 4, 32), (16, 12, 20), (32, 24, 32), (16, 1, 8),
@@ -128,6 +131,26 @@ def test_golden_rows(rng, fmt):
                                   jax_golden.fir1d_fixed_golden(row, h))
     np.testing.assert_array_equal(port_golden.fir1d_ideal_golden(row, h),
                                   jax_golden.fir1d_ideal_golden(row, h))
+
+
+def test_reference_api(rng):
+    """The reference-parity API: the same outputs and the same validation
+    errors."""
+    x = rng.integers(0, 256, size=150).tolist()
+    for h in ([0.25, 0.5, 0.25], rng.uniform(-0.4, 0.4, size=9).tolist()):
+        assert port_reference_api.fir_1d_ideal(x, h) == \
+            jax_reference_api.fir_1d_ideal(x, h)
+        for fmt in ({}, {"frac_bits": 6, "acc_bits": 20, "coeff_bits": 8}):
+            np.testing.assert_array_equal(
+                port_reference_api.fir_1d_fixed_golden(x, h, **fmt),
+                jax_reference_api.fir_1d_fixed_golden(x, h, **fmt))
+    for args in (([1, 2], [9.0]), ([1, 2], []), ([1, np.nan], [0.5]),
+                 ([1, 2], [0.5], 0)):
+        with pytest.raises(ValueError) as port_err:
+            port_reference_api.fir_1d_fixed_golden(*args)
+        with pytest.raises(ValueError) as jax_err:
+            jax_reference_api.fir_1d_fixed_golden(*args)
+        assert str(port_err.value) == str(jax_err.value)
 
 
 def test_synthetic_corpus_bytes(tmp_path):

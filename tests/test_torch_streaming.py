@@ -1,7 +1,8 @@
 """The port's checkpointable streaming against the JAX package's.
 
 Every case of ``tests/test_streaming.py`` that does not test an item the
-port leaves out (the row-split step and ``auto_rows_split``), run through
+port leaves out (the row-split step and ``auto_rows_split``: a split runs
+the default step, as the JAX function does off its accelerator), run through
 ``warmup_fir_filter_tpu_torch.ops.streaming``; checkpoints saved by either
 package and resumed by the other; ``stream_scanned`` of both packages on
 the same data (the unsplit step, the windowed step of kernels D and A in
@@ -252,10 +253,11 @@ def _both_scans(h, data, **kwargs):
     return got, want, port.state, ref.state
 
 
-@pytest.mark.parametrize("rows_split", [None, "pallas"])
+@pytest.mark.parametrize("rows_split", [None, "pallas", "auto", 1, 2, 4])
 def test_scan_matches_jax_5tap(rng, rows_split):
     """The unsplit step and the windowed step (kernel D then kernel A, in
-    their plain versions on the CPU) at the JAX test's (4, 16384)."""
+    their plain versions on the CPU) at the JAX test's (4, 16384); every
+    row split the JAX function takes gives its checksums and carry."""
     h = np.asarray(FILTER_BANKS[5]["sharpen"])
     data = rng.integers(0, 256, size=(3, 4, 16_384), dtype=np.uint8)
     got, want, port_state, ref_state = _both_scans(h, data,
@@ -367,9 +369,22 @@ def test_windowed_mode_gates():
 
 
 @pytest.mark.parametrize("rows_split", [2, 8, "auto"])
-def test_row_split_is_not_ported(rows_split):
+def test_row_split_is_not_ported(rng, rows_split):
+    """The TPU row-split step is not ported: a split is accepted and runs
+    the default step, with the unsplit scan's checksums and carry."""
+    data = torch.from_numpy(rng.integers(0, 256, size=(2, 2, 64),
+                                         dtype=np.uint8))
+    ref, st = Fir1DStream([0.5, 0.5], 2), Fir1DStream([0.5, 0.5], 2)
+    want = stream_scanned(ref, lambda b: data[b], 2)
+    got = stream_scanned(st, lambda b: data[b], 2, rows_split=rows_split)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(st.state.carry, ref.state.carry)
+
+
+@pytest.mark.parametrize("rows_split", [0, -2, 1.5, True, "wide"])
+def test_scan_rejects_bad_rows_split(rows_split):
     st = Fir1DStream([0.5, 0.5], 2)
-    with pytest.raises(NotImplementedError, match="row-split"):
+    with pytest.raises(ValueError, match="rows_split"):
         stream_scanned(st, lambda b: torch.zeros((2, 64), dtype=torch.uint8),
                        1, rows_split=rows_split)
 

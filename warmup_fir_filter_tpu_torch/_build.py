@@ -55,10 +55,10 @@ _FIR2D_INT = (
 #: C signature of each entry point: (argtypes, restype).
 _SIGNATURES = {
     # x, y, rows, n, digits, planes, taps, exponents (host), bias,
-    # needs_wrap, frac_bits, acc_bits, stream
+    # needs_wrap, frac_bits, acc_bits, int32 taps (host), stream
     "wft_fir_band": (
         [_VOIDP, _VOIDP, _LL, _LL, _VOIDP, _INT, _INT, _VOIDP,
-         ctypes.c_uint32, _INT, _INT, _INT, _VOIDP],
+         ctypes.c_uint32, _INT, _INT, _INT, _VOIDP, _VOIDP],
         _INT,
     ),
     # x, y, rows, n, taps (device int32), num_taps, frac_bits, acc_bits,

@@ -1,9 +1,10 @@
-// Per-thread cores of kernel K (fft_rows.cu), kernel L (osfilt.cu) and
-// kernel M (osfilt_stream.cu): a shared-memory power-of-two complex f32 FFT,
-// the spectral multiply, and the loads and stores around them.
+// Per-thread cores of kernel L (osfilt.cu) and kernel M (osfilt_stream.cu):
+// a shared-memory power-of-two complex f32 FFT, the spectral multiply, and
+// the loads and stores around them.  Kernel K's row FFT has its own core,
+// wft_fft_rows.cuh (Stockham passes in registers).
 //
 // Like wft_chain.cuh, this header also compiles as plain C++: the CPU tests
-// build it with g++, run every CTA and thread of the three kernels in a host
+// build it with g++, run every CTA and thread of the two kernels in a host
 // loop (the steps of a CTA one after another, where the kernels put a
 // __syncthreads()) and hold the result against the plain PyTorch versions.
 //
@@ -15,9 +16,8 @@
 // natural order to bit-reversed order; decimation in time (DIT) takes
 // bit-reversed order back to natural.  The filters (kernels L and M) run DIF
 // forward, multiply by the filter spectrum stored in bit-reversed order, and
-// DIT inverse: no permutation pass at all.  The row FFT (kernel K) runs DIF
-// and reads its result out in bit-reversed order.  The inverse transform is
-// the same with conjugated twiddles.
+// DIT inverse: no permutation pass at all.  The inverse transform is the
+// same with conjugated twiddles.
 //
 // Twiddles: tw[k] = exp(-2 pi i k / n), k < n / 2, computed in float64 on
 // the host and stored as f32 (kernels/fft.py::fft_twiddles); a stage of half
@@ -25,8 +25,7 @@
 // the JAX package's SNR bounds, which need about 1e-6 relative error.
 //
 // Layout: point i of an FFT lives at slot i + i / 32 of its buffer: one
-// spare slot every 32 points spreads the bit-reversed reads of kernel K
-// over the banks.  A CTA transforms `count` FFTs, buffer f at
+// spare slot every 32 points.  A CTA transforms `count` FFTs, buffer f at
 // f * fft_slots(n).
 #pragma once
 
@@ -42,7 +41,7 @@ struct alignas(8) Cf {
   float re, im;
 };
 
-// Threads of a CTA of kernels K, L and M.
+// Threads of a CTA of kernels L and M.
 constexpr int kFftThreads = 512;
 // Complex points a CTA transforms: several FFTs when n is small.
 constexpr int kFftCtaPoints = 4096;
@@ -60,16 +59,6 @@ WFT_INLINE int fft_per_cta(int log_n) {
 WFT_INLINE int fft_shared_bytes(int log_n) {
   return static_cast<int>(sizeof(Cf)) *
          (fft_per_cta(log_n) * fft_slots(1 << log_n) + ((1 << log_n) >> 1));
-}
-
-WFT_INLINE unsigned bit_reverse(unsigned k, int bits) {
-#if defined(__CUDA_ARCH__)
-  return __brev(k) >> (32 - bits);
-#else
-  unsigned r = 0;
-  for (int b = 0; b < bits; ++b) r = (r << 1) | ((k >> b) & 1u);
-  return r;
-#endif
 }
 
 WFT_INLINE Cf cadd(Cf a, Cf b) { return {a.re + b.re, a.im + b.im}; }
@@ -216,43 +205,6 @@ WFT_INLINE uint8_t round_u8(float v) {
 WFT_INLINE void store_sample(float* y, long long i, float v) { y[i] = v; }
 WFT_INLINE void store_sample(uint8_t* y, long long i, float v) {
   y[i] = round_u8(v);
-}
-
-// ---------------------------------------------------------------- kernel K
-// CTA r0 transforms rows r0 .. r0 + count - 1 of the (rows, n) planes;
-// xi == nullptr is a real input.  Rows past the end load zeros.
-WFT_INLINE void fft_rows_load_thread(const float* xr, const float* xi,
-                                     long long rows, int log_n, long long r0,
-                                     Cf* buf, int count, int t, int threads) {
-  const int n = 1 << log_n;
-  for (int i = t; i < (count << log_n); i += threads) {
-    const long long row = r0 + (i >> log_n);
-    const int k = i & (n - 1);
-    Cf v{0.0f, 0.0f};
-    if (row < rows) {
-      v.re = xr[row * n + k];
-      if (xi != nullptr) v.im = xi[row * n + k];
-    }
-    buf[(i >> log_n) * fft_slots(n) + fft_slot(k)] = v;
-  }
-}
-
-// X[k] is at point bit_reverse(k) after the DIF; times `scale` (1 / n for
-// the inverse).
-WFT_INLINE void fft_rows_store_thread(const Cf* buf, long long rows,
-                                      int log_n, long long r0, float scale,
-                                      float* yr, float* yi, int count, int t,
-                                      int threads) {
-  const int n = 1 << log_n;
-  for (int i = t; i < (count << log_n); i += threads) {
-    const long long row = r0 + (i >> log_n);
-    if (row >= rows) continue;
-    const int k = i & (n - 1);
-    const Cf v = buf[(i >> log_n) * fft_slots(n) +
-                     fft_slot(static_cast<int>(bit_reverse(k, log_n)))];
-    yr[row * n + k] = v.re * scale;
-    yi[row * n + k] = v.im * scale;
-  }
 }
 
 // ---------------------------------------------------------------- kernel L

@@ -23,4 +23,49 @@
                    the stream overlap-save filter K14 (``fft_pallas.py``);
 - ``dispatch``     ``prepare_fixed_fir``, ``fir1d_fixed_rows_auto`` and
                    ``fir2d_fixed_auto``.
+
+The package exports the JAX package's 14 kernel entries under their names;
+each runs on its input's device.  ``fir1d_fixed_rows_mxu_window``,
+``resample_poly_mxu`` and ``window_rows_pallas`` live in their modules, as
+in the JAX package.
 """
+
+from warmup_fir_filter_tpu_torch.kernels.fir_direct import (
+    fir1d_fixed_rows_pallas,
+)
+from warmup_fir_filter_tpu_torch.kernels.fir_band import fir1d_fixed_rows_mxu
+from warmup_fir_filter_tpu_torch.kernels.fir_float import fir1d_ideal_rows_mxu
+from warmup_fir_filter_tpu_torch.kernels.fir2d import (
+    crop_frame_overlap,
+    fir2d_fixed_frame,
+    fir2d_fixed_frame_overlap,
+    fir2d_fixed_mxu,
+    pad_frame,
+    pad_frame_overlap,
+)
+from warmup_fir_filter_tpu_torch.kernels.fft import (
+    fft_rows_pallas,
+    fir_overlap_save_pallas,
+    fir_overlap_save_quantized_pallas,
+)
+from warmup_fir_filter_tpu_torch.kernels.dispatch import (
+    fir1d_fixed_rows_auto,
+    fir2d_fixed_auto,
+)
+
+__all__ = [
+    "fir1d_fixed_rows_pallas",
+    "fir1d_fixed_rows_mxu",
+    "fir1d_ideal_rows_mxu",
+    "fir2d_fixed_mxu",
+    "fir2d_fixed_frame",
+    "fir2d_fixed_frame_overlap",
+    "crop_frame_overlap",
+    "pad_frame",
+    "pad_frame_overlap",
+    "fft_rows_pallas",
+    "fir_overlap_save_pallas",
+    "fir_overlap_save_quantized_pallas",
+    "fir1d_fixed_rows_auto",
+    "fir2d_fixed_auto",
+]

@@ -1,10 +1,10 @@
 """Kernels K, L and M: the FFT path (ports K12, K13 and K14).
 
-Counterpart of ``warmup_fir_filter_tpu/kernels/fft_pallas.py``.  Three
-kernels share one shared-memory FFT core (``csrc/wft_fft.cuh``):
+Counterpart of ``warmup_fir_filter_tpu/kernels/fft_pallas.py``:
 
 - kernel K (``csrc/fft_rows.cu``, ports K12, ``:406``, ``:418``, ``:424``):
-  the batched row FFT and scaled inverse, natural order in and out;
+  the batched row FFT and scaled inverse, natural order in and out, as
+  Stockham passes of radix 16 in registers (``csrc/wft_fft_rows.cuh``);
   wrapper :func:`fft_rows`, entry :func:`fft_rows_pallas`;
 - kernel L (``csrc/osfilt.cu``, ports K13, ``:519`` and ``:436``): the fused
   overlap-save filter over framed segments, f32 or u8 in and out; wrapper
@@ -18,7 +18,8 @@ kernels share one shared-memory FFT core (``csrc/wft_fft.cuh``):
   two entries above when nfft is automatic and
   :func:`stream_kernel_supported` holds.
 
-The table builders are the JAX module's, as numpy, so the tests can hold
+Kernels L and M share one shared-memory radix-2^2 FFT core
+(``csrc/wft_fft.cuh``).  The table builders are the JAX module's, as numpy, so the tests can hold
 them equal: :func:`factor_nfft`, :func:`_dft_tables`,
 :func:`_osfilt_spectrum`, :func:`_osfilt_spectrum_shifted`,
 :func:`_stream_geometry` and :func:`_osfilt_fold_tables` (f32, from f64:
@@ -29,12 +30,12 @@ input's device: the 4-step ``nfft = N1·128`` DFT with those tables as
 matmuls, the twiddle multiply between them and the scrambled spectrum;
 for the stream, the folded per-k1 tables of the TPU stream kernel over the
 windows of :func:`_stream_geometry`.  The kernels compute the same
-functions with a radix-2^2 FFT, so they agree with the plain versions to
+functions with their own FFTs, so they agree with the plain versions to
 f32 rounding (>= 120 dB), not bit for bit.
 
 The TPU layout helpers (the m-layout and spectrum (un)scrambling, the bf16
 operand split, ``_auto_block_rows``, ``block_rows``, ``r_windows``) have no
-counterpart: a CTA transforms whole rows in shared memory.
+counterpart: a CTA transforms whole rows.
 """
 
 from __future__ import annotations

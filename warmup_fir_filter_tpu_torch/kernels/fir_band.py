@@ -1,4 +1,4 @@
-"""Kernel A: the digit-plane band FIR for up to 257 taps (ports K1 and K2).
+"""Kernel A: the fixed band FIR for up to 257 taps (ports K1 and K2).
 
 Counterpart of ``warmup_fir_filter_tpu/kernels/fir_mxu.py`` (``:97-130``,
 ``:183-246``, ``:248-681``).  The coefficient encoding is carried over
@@ -14,7 +14,9 @@ exactly, because it is the contract that int8 tensor cores will consume:
   accumulator (:func:`band_bias`).
 
 :class:`FixedFir1d` holds all of it as buffers.  :func:`fir_band` launches
-``csrc/fir_band.cu`` on a CUDA tensor; on a CPU tensor it runs
+``csrc/fir_band.cu`` on a CUDA tensor (up to 32 taps its short-tap route,
+which multiplies the raw samples by ``h_fixed`` and gives the same
+accumulator mod 2^32; beyond, the digit planes); on a CPU tensor it runs
 :func:`fir_band_plain`, the band formulation itself in int64 matmuls, so
 the CPU tests hold the encoding against the JAX kernel and not only the
 outputs.
@@ -170,6 +172,11 @@ class FixedFir1d(nn.Module):
         self.exponents = exponents
         self.bias_value = bias
         self.wrap = needs_wrap
+        # The launch's host arrays, built once: the exponents and the int32
+        # taps (kernel parameters of the short-tap route).
+        self.exponents_c = (ctypes.c_int * len(exponents))(*exponents)
+        self.taps_c = (ctypes.c_int32 * h_fixed.size)(
+            *h_fixed.astype(np.int32).tolist())
 
         def buf(name: str, value: np.ndarray) -> None:
             self.register_buffer(name, torch.as_tensor(value, device=device))
@@ -267,14 +274,13 @@ def fir_band(x_u8: torch.Tensor, fir: FixedFir1d) -> torch.Tensor:
     if x_u8.numel() == 0:
         return y
     lib = _build.load_library()
-    exponents = (ctypes.c_int * len(fir.exponents))(*fir.exponents)
     with torch.cuda.device(x_u8.device):
         code = lib.wft_fir_band(
             x_u8.data_ptr(), y.data_ptr(), x_u8.shape[0], x_u8.shape[1],
             fir.digits.data_ptr(), len(fir.exponents), fir.num_taps,
-            ctypes.cast(exponents, ctypes.c_void_p),
-            fir.bias_value & 0xFFFFFFFF, int(fir.wrap), qf.frac_bits,
-            qf.acc_bits, _build.stream_of(x_u8),
+            ctypes.addressof(fir.exponents_c), fir.bias_value & 0xFFFFFFFF,
+            int(fir.wrap), qf.frac_bits, qf.acc_bits,
+            ctypes.addressof(fir.taps_c), _build.stream_of(x_u8),
         )
     _build.check_launch(lib, code, "fir_band")
     fir_band.launches += 1
@@ -282,3 +288,11 @@ def fir_band(x_u8: torch.Tensor, fir: FixedFir1d) -> torch.Tensor:
 
 
 fir_band.launches = 0
+
+
+def fir1d_fixed_rows_mxu(x_u8: torch.Tensor, h,
+                         qformat: QFormat = QFormat()) -> torch.Tensor:
+    """Bit-exact fixed FIR over (B, N) uint8 rows, L ≤ 257, on
+    ``x_u8.device``: the JAX ``fir_mxu.py::fir1d_fixed_rows_mxu`` entry
+    (its TPU blocking knobs dropped) over kernel A."""
+    return fir_band(x_u8, FixedFir1d.from_numpy(h, qformat, x_u8.device))

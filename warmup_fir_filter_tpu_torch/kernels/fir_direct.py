@@ -84,3 +84,11 @@ class FixedFirDirect(nn.Module):
         if x_u8.device.type == "cpu":
             return fir1d_fixed_rows_torch(x_u8, self.h, self.qformat)
         return _launch(x_u8, self.h_fixed, self.qformat)
+
+
+def fir1d_fixed_rows_pallas(x_u8: torch.Tensor, h,
+                            qformat: QFormat = QFormat()) -> torch.Tensor:
+    """Bit-exact fixed FIR over (B, N) uint8 rows, any L, on
+    ``x_u8.device``: the JAX ``fir_pallas.py::fir1d_fixed_rows_pallas``
+    entry (its TPU blocking knobs dropped) over kernel B."""
+    return fir_direct(x_u8, h, qformat)

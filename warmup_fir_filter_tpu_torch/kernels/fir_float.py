@@ -160,3 +160,10 @@ def fir1d_ideal_rows_band(x: torch.Tensor, h, *,
     if x.dtype not in SAMPLE_DTYPES:
         x = x.to(torch.float32)
     return fir_float(x.contiguous(), FloatFir1d(h, x.device))
+
+
+def fir1d_ideal_rows_mxu(x: torch.Tensor, h, *,
+                         precision: str = "bf16x3") -> torch.Tensor:
+    """The JAX ``fir_float_mxu.py::fir1d_ideal_rows_mxu`` entry (its TPU
+    blocking knobs dropped): :func:`fir1d_ideal_rows_band`, kernel H."""
+    return fir1d_ideal_rows_band(x, h, precision=precision)

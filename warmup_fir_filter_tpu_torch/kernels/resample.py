@@ -166,3 +166,10 @@ def resample_poly_band(x: torch.Tensor, h, up: int, down: int, *,
         raise ValueError(f"unknown precision {precision!r}")
     rs = PolyphaseResampler(h, up, down, x.device)
     return resample(x.to(torch.float32).contiguous(), rs)
+
+
+def resample_poly_mxu(x: torch.Tensor, h, up: int, down: int, *,
+                      precision: str = "bf16x3") -> torch.Tensor:
+    """The JAX ``resample_mxu.py::resample_poly_mxu`` entry (its TPU
+    blocking knobs dropped): :func:`resample_poly_band`, kernel I."""
+    return resample_poly_band(x, h, up, down, precision=precision)

@@ -96,3 +96,10 @@ def window_rows(x_u8: torch.Tensor, carry_ext_u8: torch.Tensor, sub: int,
 
 
 window_rows.launches = 0
+
+
+def window_rows_pallas(x_u8: torch.Tensor, carry_ext_u8: torch.Tensor,
+                       sub: int, g_windows: int) -> torch.Tensor:
+    """The JAX ``window_copy.py::window_rows_pallas`` entry (without its
+    ``interpret`` flag): :func:`window_rows`, kernel D."""
+    return window_rows(x_u8, carry_ext_u8, sub, g_windows)

@@ -333,18 +333,21 @@ def stream_scanned(
     fed one by one, so a second call resumed from a saved
     :class:`FirStreamState` continues bit-identically.
 
-    ``rows_split``: None or 1 is the default; ``"pallas"`` forces the
-    windowed step (default emit only).  Other values (the TPU row split)
-    raise NotImplementedError.
+    ``rows_split``: None, ``"auto"`` or a positive int run the default
+    step, as the JAX function does off its accelerator: its row split is
+    a TPU layout whose results are bit-identical across splits, so every
+    split gives the same checksums and carry here.  ``"pallas"`` forces
+    the windowed step (default emit only).  Anything else raises
+    ValueError.
 
     Returns the emitted values, leading axis ``num_blocks``: for the
     default emit a numpy uint32 ``(num_blocks, 3)`` array.
     """
-    if rows_split not in (None, 1, "pallas"):
-        raise NotImplementedError(
-            f"rows_split={rows_split!r}: the row-split step "
-            "(_stream_step_mxu_wide, auto_rows_split) is not ported; use "
-            "None or 'pallas'.")
+    if not (rows_split in (None, "auto", "pallas")
+            or (isinstance(rows_split, int) and not isinstance(rows_split, bool)
+                and rows_split >= 1)):
+        raise ValueError(f"rows_split must be None, 'auto', 'pallas' or a "
+                         f"positive int, got {rows_split!r}")
     num_taps = stream.num_taps
     qf = stream.qformat
     device = stream.device
