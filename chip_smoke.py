@@ -135,7 +135,6 @@ from warmup_fir_filter_tpu_torch.kernels.dispatch import (
     fir2d_fixed_auto,
 )
 from warmup_fir_filter_tpu_torch.kernels.fft import (
-    LANE,
     STREAM_NFFT,
     FilterSpectrum,
     _osfilt_segments,
@@ -152,6 +151,7 @@ from warmup_fir_filter_tpu_torch.kernels.fft import (
     osfilt_plain,
     osfilt_stream,
     osfilt_stream_plain,
+    stream_plan,
 )
 from warmup_fir_filter_tpu_torch.kernels.fir2d import (
     FixedFir2d,
@@ -353,20 +353,26 @@ KERNELS = ("fir_band", "fir_direct", "fir_window", "window_rows",
            "fir2d_frame", "fir2d_oframe", "fir2d_bf16", "fir_float",
            "resample", "chain_fused", "fft_rows", "osfilt", "osfilt_stream")
 #: Kernel K's grid (nfft × batch, complex, real and inverse rows) and
-#: kernel L's (pinned nfft × taps, then long filters at their automatic
-#: nfft: 4,096 and 16,384).
+#: kernel L's (every nfft, so each last-pass radix 2, 4, 8 and 16 and the
+#: 1,024-thread 16,384 plan, × the taps that fit, then long filters at
+#: their automatic nfft: 4,096 and 16,384).
 FFT_SIZES = tuple(1 << b for b in range(1, 15))  # each has its radix plan
 FFT_BATCHES = (1, 5, 1000)
-OSFILT_SIZES = (128, 256, 512, 2048, 4096)
+OSFILT_SIZES = FFT_SIZES
 OSFILT_TAPS = (2, 9, 63)
 OSFILT_LONG_TAPS = (259, 2048)
 OSFILT_SEGMENTS = 1001
 #: Kernel M's (C, T, L, off): tests/test_fft_pallas.py:166-176, then
-#: T ∈ {1, 511, 40,001} at 63 taps.
+#: T ∈ {1, 511, 40,001} at 63 taps, then the edges of its window plan
+#: (``stream_plan``): hop 512 (L = 1), an even L, hop 384 and 256 (L =
+#: 129, 257), T = 449, 450 and 451 at a hop of 450, off = 31 and 62.
 STREAM_FFT_CASES = ((3, 2000, 63, 0), (2, 1111, 63, 31), (1, 700, 5, 0),
                     (4, 4096, 129, 64), (2, 900, 257, 128), (2, 513, 63, 62),
                     (3, 300, 63, 0), (2, 257, 1, 0), (2, 1, 63, 0),
-                    (2, 511, 63, 0), (2, 40001, 63, 0))
+                    (2, 511, 63, 0), (2, 40001, 63, 0),
+                    (2, 3000, 1, 0), (2, 3000, 2, 0), (2, 3000, 129, 0),
+                    (2, 3000, 257, 0), (2, 449, 63, 0), (2, 450, 63, 0),
+                    (2, 451, 63, 0), (2, 3000, 63, 31), (2, 3000, 63, 62))
 #: BASELINE config 4 as bench_configs.py:167-178 runs it: 16 × 10,000,000
 #: u8 from seed 4, 63-tap low-pass at 0.25; the shard-local call over 4
 #: time blocks; the framed kernel L timed at a pinned nfft.
@@ -1160,16 +1166,25 @@ def time_long_taps(card: str) -> dict:
             if not np.array_equal(got[:16].cpu().numpy(), want16):
                 raise AssertionError(f"{name} != golden at {num_taps} taps")
         del plain
-        med = median_ms({"fir_window": lambda: window_fir(x),
-                         "fir_direct": lambda: direct_fir(x)},
-                        LONG_TIMING_REPS, LONG_TIMING_LAUNCHES)
+        runs = {"fir_window": lambda: window_fir(x),
+                "fir_direct": lambda: direct_fir(x)}
+        if num_taps == LONG_TAPS:
+            # Kernel C at the shape the long-tap stream launches it on: a
+            # block behind its carry, 16 × (4,000,000 + L − 1).
+            block = torch.randint(
+                0, 256, (STREAM_CHANNELS, STREAM_BLOCK + num_taps - 1),
+                dtype=torch.uint8, device="cuda", generator=gen)
+            runs["fir_window_block"] = lambda: window_fir(block)
+        med = median_ms(runs, LONG_TIMING_REPS, LONG_TIMING_LAUNCHES)
         med["torch_direct"] = (statistics.median(plain_ms), min(plain_ms),
                                max(plain_ms))
         for name, (m, lo, hi) in med.items():
+            shape = ((STREAM_CHANNELS, STREAM_BLOCK + num_taps - 1)
+                     if name == "fir_window_block" else BENCH_SHAPE)
             print(f"[chip_smoke] time {name} {num_taps} taps: median {m:.4f} "
                   f"ms (min {lo:.4f}, max {hi:.4f}) "
-                  f"{BENCH_SHAPE[0] * BENCH_SHAPE[1] / m / 1e3:.1f} "
-                  f"Msamples/s [{BENCH_SHAPE[0]}x{BENCH_SHAPE[1]} u8, "
+                  f"{shape[0] * shape[1] / m / 1e3:.1f} "
+                  f"Msamples/s [{shape[0]}x{shape[1]} u8, "
                   f"Q4.12 low-pass; {card}]", flush=True)
         out[num_taps] = {name: m for name, (m, _, _) in med.items()}
     return out
@@ -1550,7 +1565,8 @@ def check_fft_kernels(agree: dict, agree_u8: dict) -> None:
                 if not err <= 2e-4 * float(ref.abs().max()):
                     raise AssertionError(f"{label}: max |got - fft| {err:.3g}"
                                          " over 2e-4 max|want|")
-    cells = [(nfft, taps) for nfft in OSFILT_SIZES for taps in OSFILT_TAPS]
+    cells = [(nfft, taps) for nfft in OSFILT_SIZES for taps in OSFILT_TAPS
+             if taps <= nfft]
     cells += [(pick_nfft(taps), taps) for taps in OSFILT_LONG_TAPS]
     for nfft, taps in cells:
         spec = FilterSpectrum(rng.uniform(0.0, 2.0 / taps, taps), nfft,
@@ -1565,7 +1581,7 @@ def check_fft_kernels(agree: dict, agree_u8: dict) -> None:
             agree_u8["osfilt"].check_stage(osfilt(x, spec, out_u8=True), want,
                                            label)
     for channels, time_len, taps, off in STREAM_FFT_CASES:
-        h = design_lowpass(taps, 0.2) if taps > 1 else np.array([1.0])
+        h = stream_taps(taps)
         tables = FilterSpectrum(h, STREAM_NFFT,
                                 d=_stream_geometry(taps, off)[1],
                                 device="cuda")
@@ -1589,6 +1605,18 @@ def check_fft_kernels(agree: dict, agree_u8: dict) -> None:
             f"{name} {a.count} (max |diff| {a.max_abs_err}, at most "
             f"{a.max_share:.4%} differing)" for name, a in agree_u8.items()),
         flush=True)
+
+
+def stream_taps(taps: int) -> np.ndarray:
+    """Phase 12's stream filters: a low-pass; one tap passes through, and
+    two are an irrational pair (a symmetric pair halves the sum of two
+    integers, which would put half the u8 outputs on rounding ties)."""
+    if taps == 1:
+        return np.array([1.0])
+    if taps == 2:
+        golden = (np.sqrt(5.0) - 1.0) / 2.0
+        return np.array([golden, 1.0 - golden])
+    return design_lowpass(taps, 0.2)
 
 
 def ideal_fir64(x: torch.Tensor, h: np.ndarray) -> torch.Tensor:
@@ -1650,7 +1678,7 @@ def run_config4(agree: dict) -> tuple[dict, dict, tuple]:
     only(counts["config4_shards"], "osfilt_stream", CONFIG4_SHARDS,
          "config 4 shard-local")
     result["shards_snr_db_vs_unsharded"] = snr_on_card(y, torch.cat(parts, 1))
-    result["shard_hop_tiles"] = _stream_geometry(CONFIG4_TAPS, halo)[3]
+    result["shard_hop"] = stream_plan(CONFIG4_TAPS, halo)[0]
     del blocks, parts
 
     reset_launch_counts()
@@ -1701,12 +1729,13 @@ def run_config4(agree: dict) -> tuple[dict, dict, tuple]:
     return counts, result, (x_u8, x, h)
 
 
-def run_chain_fft(agree: dict, fm: tuple) -> tuple[dict, dict]:
+def run_chain_fft(agree: dict, fm: tuple, card: str) -> tuple[dict, dict]:
     """The chain on config 5's FM planes with the ``"pallas"`` channelizer
     (kernels I then M alone, >= 90 dB against staged ``"mxu"``) and a
     259-tap channelizer under ``"auto"`` (kernels I then L alone, >= 90 dB
     against the ``torch.fft`` channelizer); kernels M and L against their
-    plain versions at the shapes the chain gives them."""
+    plain versions at the shapes the chain gives them; CUDA-event medians
+    of both chains end to end and of M and L at those shapes."""
     cfg = ChainConfig()
     long_cfg = dataclasses.replace(cfg, channelizer_taps=259)
     runs = {"chain_pallas": (dataclasses.replace(
@@ -1736,12 +1765,27 @@ def run_chain_fft(agree: dict, fm: tuple) -> tuple[dict, dict]:
                       out_u8=False),
         osfilt_stream_plain(both, tables, off=0, out_len=both.shape[1]),
         f"osfilt_stream chain {tuple(both.shape)}", 120.0)
-    h = long_cfg.channelizer_filter()
-    seg, _, _ = _osfilt_segments(both, h.size, pick_nfft(h.size))
-    spec = FilterSpectrum(h, pick_nfft(h.size), device="cuda")
+    h_long = long_cfg.channelizer_filter()
+    seg, _, _ = _osfilt_segments(both, h_long.size, pick_nfft(h_long.size))
+    spec = FilterSpectrum(h_long, pick_nfft(h_long.size), device="cuda")
     agree["osfilt"].check(osfilt(seg, spec, out_u8=False),
                           osfilt_plain(seg, spec),
                           f"osfilt chain segments {tuple(seg.shape)}", 120.0)
+    med = median_ms({
+        "osfilt_stream_chain": lambda: osfilt_stream(
+            both, tables, off=0, out_len=both.shape[1], out_u8=False),
+        "osfilt_chain": lambda: osfilt(seg, spec, out_u8=False),
+    }, CHAIN_TIMING_REPS, CHAIN_TIMING_LAUNCHES)
+    med.update(median_ms({run: (lambda c=config: chain_forward(*fm, c))
+                          for run, (config, _, _) in runs.items()},
+                         3, PLAIN_CHAIN_CALLS))
+    shapes = {"osfilt_stream_chain": f"{tuple(both.shape)} stream",
+              "osfilt_chain": f"{tuple(seg.shape)} segments"}
+    for run, (m, lo, hi) in med.items():
+        print(f"[chip_smoke] time chain fft {run}: median {m:.4f} ms (min "
+              f"{lo:.4f}, max {hi:.4f}) [{shapes.get(run, 'config 5')}; "
+              f"{card}]", flush=True)
+        result[f"{run}_ms"] = m
     result["launches"] = counts
     print(f"[chip_smoke] chain FFT channelizers {json.dumps(result)}",
           flush=True)
@@ -1760,7 +1804,7 @@ def time_fft(card: str, agree: dict, x_u8: torch.Tensor, x: torch.Tensor,
     the same f32 function), the ``torch.fft`` overlap-save, the entry
     ``fir_overlap_save_pallas`` end to end and a ``copy_`` of the f32
     input; with the work of each timed call for its bound."""
-    _, d, _, hop_tiles = _stream_geometry(h.size, 0)
+    d = _stream_geometry(h.size, 0)[1]
     tables = FilterSpectrum(h, STREAM_NFFT, d=d, device="cuda")
     nfft = CONFIG4_PINNED_NFFT
     seg, _, _ = _osfilt_segments(x, h.size, nfft)
@@ -1825,7 +1869,10 @@ def time_fft(card: str, agree: dict, x_u8: torch.Tensor, x: torch.Tensor,
               f"max {hi:.4f}) [{shape}; {card}]", flush=True)
     result = {run: m for run, (m, _, _) in med.items()}
     result["conv1d_snr_db"] = conv_snr
-    windows = CONFIG4_CHANNELS * -(-out_len // (hop_tiles * LANE))
+    # M's work is the least any 512-point overlap-save does: a window
+    # every 512 - L + 1 outputs, whatever placement a kernel takes.
+    windows = CONFIG4_CHANNELS * -(-out_len // stream_plan(h.size, 0)[0])
+    result["windows"] = windows
 
     def transform_ops(n: int) -> float:
         return 5.0 * n * np.log2(n)
@@ -1942,7 +1989,7 @@ def main() -> int:
     phase("13 config 4")
     counts4, config4, (x4_u8, x4, h4) = run_config4(fft_agree)
     launches.update(counts4)
-    counts_chain, chain_fft = run_chain_fft(fft_agree, fm)
+    counts_chain, chain_fft = run_chain_fft(fft_agree, fm, card)
     launches.update(counts_chain)
     del fm
     times_fft = time_fft(card, fft_agree, x4_u8, x4, h4)
@@ -1965,10 +2012,13 @@ def main() -> int:
     nnz_2d = int(np.count_nonzero(qf.quantize_coeffs(
         np.asarray(FILTER_BANK_2D["sharpen5"]))))
     frame_samples = FRAME_SIZE * FRAME_SIZE
+    block_samples = STREAM_CHANNELS * (STREAM_BLOCK + LONG_TAPS - 1)
     bounds = {
         "fir_band": bound(2 * samples, 2 * nnz_5 * samples, "int8"),
         "fir_direct": bound(2 * samples, 2 * nnz_5 * samples, "int8"),
         "fir_window": bound(2 * samples, 2 * nnz_long * samples, "int8"),
+        "fir_window_block": bound(2 * block_samples,
+                                  2 * nnz_long * block_samples, "int8"),
         "window_rows": bound(split["bytes"], 0, "int8"),
         **{kind: bound(2 * times_2d["frame_numel"][kind],
                        2 * nnz_2d * frame_samples,
@@ -2023,6 +2073,8 @@ def main() -> int:
          "ms": long_taps[LONG_TAPS]["fir_window"],
          "plain_ms": long_taps[LONG_TAPS]["torch_direct"],
          **bounded("fir_window"), "library_ms": None,
+         "ms_stream_block": long_taps[LONG_TAPS]["fir_window_block"],
+         "bound_ms_stream_block": bounds["fir_window_block"]["bound_ms"],
          **{f"{key}_{taps}tap": long_taps[taps][name]
             for taps in LONG_TIMING_TAPS
             for key, name in (("ms", "fir_window"),
@@ -2106,11 +2158,13 @@ def main() -> int:
                           ("bound_ms", bounds[f"fft_rows_{n}"]["bound_ms"]))}),
         fft_kernel("osfilt", "osfilt.cu", 519, (436,), t["osfilt"],
                    t["osfilt_plain"], t["conv1d"], nfft=CONFIG4_PINNED_NFFT,
+                   ms_chain_shape=chain_fft["osfilt_chain_ms"],
+                   ms_chain_auto_259=chain_fft["chain_auto_259_ms"],
                    max_abs_err_u8=fft_agree_u8["osfilt"].max_abs_err,
                    share_differing_u8=fft_agree_u8["osfilt"].max_share),
         fft_kernel("osfilt_stream", "osfilt_stream.cu", 622, (),
                    t["osfilt_stream"], t["osfilt_stream_plain"], t["conv1d"],
-                   ms_u8=t["osfilt_stream_u8"],
+                   ms_u8=t["osfilt_stream_u8"], windows=t["windows"],
                    bound_ms_u8=bounds["osfilt_stream_u8"]["bound_ms"],
                    torch_fft_overlap_save_ms=t["torch_fft_overlap_save"],
                    entry_ms=t["entry"], copy_ms=t["copy"],
@@ -2119,7 +2173,9 @@ def main() -> int:
                    config4={key: value for key, value in config4.items()
                             if key != "launches"},
                    chain_pallas_vs_staged_snr_db=chain_fft[
-                       "chain_pallas_snr_db"]),
+                       "chain_pallas_snr_db"],
+                   ms_chain_shape=chain_fft["osfilt_stream_chain_ms"],
+                   ms_chain_pallas=chain_fft["chain_pallas_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -12,9 +12,13 @@
   (``:110-123``), the quantized path within 1 of the fixed golden on under
   2% of samples (``:130-132``), the stream filter SNR > 90 dB (``:194``)
   and its u8 output equal on more than 99.9% (``:209``).
-- The kernels' per-thread cores (``csrc/wft_fft.cuh``) built with g++ and
-  run CTA by CTA on the host, against the plain versions: SNR >= 120 dB
-  (f32 transforms against float64); u8 outputs within 1, on rounding ties.
+- The kernels' per-thread cores (``csrc/wft_fft_rows.cuh``) built with g++
+  and run CTA by CTA on the host, against the plain versions: SNR >= 120
+  dB (f32 transforms against float64); u8 outputs within 1, on rounding
+  ties.  Kernel M places its windows at the full hop of 512 − L + 1
+  (``stream_plan``) where the plain version keeps the TPU kernel's, so
+  its agreement shows the function unchanged; a float64 numpy model of
+  that plan meets the same-mode FIR to 1e-9.
 - The chain's ``"pallas"`` channelizer against the JAX chain with that
   backend, SNR > 90 dB (the staged bound of ``tests/test_torch_chain.py``).
 """
@@ -52,6 +56,21 @@ STREAM_CASES = [
     (2, 257, 1, 0),         # identity filter, m_shift = 0
 ]
 STREAM_IDS = ["-".join(map(str, c)) for c in STREAM_CASES]
+#: Kernel M's window plan at its edges: hop 512 (L = 1), an even L, hop
+#: 384 and 256 (L = 129, 257), T one short of, at and one past a hop of
+#: 450 at 63 taps, and the offsets 31 and 62.
+HOP_EDGE_CASES = [
+    (2, 3000, 1, 0),
+    (2, 3000, 2, 0),
+    (2, 3000, 129, 0),
+    (2, 3000, 257, 0),
+    (2, 449, 63, 0),
+    (2, 450, 63, 0),
+    (2, 451, 63, 0),
+    (2, 3000, 63, 31),
+    (2, 3000, 63, 62),
+]
+HOP_EDGE_IDS = ["-".join(map(str, c)) for c in HOP_EDGE_CASES]
 #: Windows a program of the JAX stream kernel takes here: the function
 #: computed is the same, and interpret mode traces 2 windows quickly.
 JAX_R_WINDOWS = 2
@@ -68,7 +87,15 @@ def _snr_complex(want, got) -> float:
 
 
 def _taps(taps: int, cutoff: float = 0.2) -> np.ndarray:
-    return design_lowpass(taps, cutoff) if taps > 1 else np.array([1.0])
+    """A low-pass; one tap passes through, and two are an irrational pair:
+    a symmetric one halves the sum of two integers, so half its u8
+    outputs would sit on rounding ties."""
+    if taps == 1:
+        return np.array([1.0])
+    if taps == 2:
+        golden = (np.sqrt(5.0) - 1.0) / 2.0
+        return np.array([golden, 1.0 - golden])
+    return design_lowpass(taps, cutoff)
 
 
 # ------------------------------------------------------- gates and geometry
@@ -155,10 +182,8 @@ def test_fold_tables_match_jax_split(rng, nfft, d):
 
 
 def test_kernel_tables():
-    """The twiddles and the bit-reversed, scaled, shifted spectrum the
-    kernels read."""
-    np.testing.assert_array_equal(fft.bit_reversal(8),
-                                  [0, 4, 2, 6, 1, 5, 3, 7])
+    """The twiddles and the natural-order, scaled spectrum the kernels
+    read: h's own, whatever shift the plain versions' spectrum carries."""
     tw = fft.fft_twiddles(512)
     assert tw.shape == (256, 2) and tw.dtype == np.float32
     np.testing.assert_allclose(tw[:, 0] + 1j * tw[:, 1],
@@ -166,10 +191,15 @@ def test_kernel_tables():
                                atol=6e-8)
     h = design_lowpass(63, 0.25)
     spec = fft.FilterSpectrum(h, 512, d=97)
-    want = (np.fft.fft(h, 512) * np.exp(-2j * np.pi * np.arange(512) * 97
-                                        / 512))[fft.bit_reversal(512)] / 512
+    want = np.fft.fft(h, 512) / 512
     got = spec.spectrum.numpy()
+    assert got.shape == (512, 2) and got.dtype == np.float32
     np.testing.assert_allclose(got[:, 0] + 1j * got[:, 1], want, atol=1e-9)
+    np.testing.assert_array_equal(
+        got, fft.FilterSpectrum(h, 512).spectrum.numpy())
+    for mine, jax_part in zip((spec.hc, spec.hs),
+                              jax_fft._osfilt_spectrum_shifted(h, 512, 97)):
+        np.testing.assert_array_equal(mine, jax_part)
     assert spec.twiddles.dtype == torch.float32
 
 
@@ -389,6 +419,31 @@ def test_stream_auto_path_and_default_out_len(rng):
     assert snr_db(got[:, 31:].numpy(), tail.numpy()) > 120.0
 
 
+@pytest.mark.parametrize("case", STREAM_CASES + HOP_EDGE_CASES,
+                         ids=STREAM_IDS + HOP_EDGE_IDS)
+def test_stream_plan_model_matches_fir(rng, case):
+    """Kernel M's windows in float64 numpy, off :func:`stream_plan` alone:
+    window w is ``x[w·hop + start :][:512]`` (zero outside the stream),
+    circularly filtered by ``np.fft``; its outputs ``[L − 1, 512)`` are
+    ``q = w·hop + p − (L − 1)``.  Equal to the same-mode FIR within 1e-9:
+    an off-by-one in the plan fails here with no core."""
+    channels, time, taps, off = case
+    hop, start = fft.stream_plan(taps, off)
+    assert hop == 512 - taps + 1
+    h = _taps(taps)
+    x = rng.standard_normal((channels, time + off))
+    windows = -(-time // hop)
+    got = np.zeros((channels, windows * hop))
+    h_freq = np.fft.fft(h, 512)
+    for w in range(windows):
+        a = w * hop + start
+        seg = fft._zero_extended(torch.from_numpy(x), a, 512).numpy()
+        y = np.fft.ifft(np.fft.fft(seg, axis=-1) * h_freq, axis=-1).real
+        got[:, w * hop:(w + 1) * hop] = y[:, taps - 1:]
+    want = fir1d_ideal_golden_rows(x, h)[:, off:off + time]
+    np.testing.assert_allclose(got[:, :time], want, rtol=0, atol=1e-9)
+
+
 def test_stream_rejections():
     assert not fft.stream_kernel_supported(259)
     assert not fft.stream_kernel_supported(63, off=300)
@@ -469,83 +524,42 @@ _HARNESS = r"""
 #include <cstdint>
 #include <vector>
 
-#include "wft_fft.cuh"
 #include "wft_fft_rows.cuh"
 
 using wft::Cf;
-using wft::kFftThreads;
 
 namespace {
 
-// The steps of a CTA one after another, each over every thread: where the
-// kernels put a __syncthreads().
-void filter(Cf* buf, int log_n, const Cf* tw, const Cf* spec, int count) {
-  for (int ph = 0; ph < wft::fft_filter_phases(log_n); ++ph) {
-    for (int t = 0; t < kFftThreads; ++t) {
-      wft::fft_filter_phase(buf, log_n, ph, tw, spec, count, t, kFftThreads);
-    }
+// A CTA's registers, thread by thread, and its shared planes: thread tid
+// works on row tid / T as thread tid % T of it.
+template <int LOG_N>
+struct HostCta {
+  using Plan = wft::RowsPlan<LOG_N>;
+  std::vector<Cf> v = std::vector<Cf>(Plan::threads * Plan::P);
+  std::vector<float> smem = std::vector<float>(2 * Plan::rows * Plan::stride);
+  Cf* regs(int tid) { return v.data() + tid * Plan::P; }
+  float* sre(int tid) { return smem.data() + (tid / Plan::T) * Plan::stride; }
+  float* sim(int tid) {
+    return smem.data() + (Plan::rows + tid / Plan::T) * Plan::stride;
   }
-}
-
-template <typename T, typename U>
-void osfilt_ctas(const T* seg, U* y, long long batch, int log_n, const Cf* tw,
-                 const Cf* spec) {
-  const int count = wft::fft_per_cta(log_n);
-  std::vector<Cf> buf(count * wft::fft_slots(1 << log_n));
-  for (long long s0 = 0; s0 < batch; s0 += 2 * count) {
-    for (int t = 0; t < kFftThreads; ++t) {
-      wft::osfilt_load_thread(seg, batch, log_n, s0, buf.data(), count, t,
-                              kFftThreads);
-    }
-    filter(buf.data(), log_n, tw, spec, count);
-    for (int t = 0; t < kFftThreads; ++t) {
-      wft::osfilt_store_thread(buf.data(), batch, log_n, s0, y, count, t,
-                               kFftThreads);
-    }
-  }
-}
-
-template <typename T, typename U>
-void stream_ctas(const T* x, U* y, long long channels,
-                 const wft::StreamPlan& p, const Cf* tw, const Cf* spec) {
-  const int count = wft::fft_per_cta(wft::kStreamLog2);
-  std::vector<Cf> buf(count * wft::fft_slots(wft::kStreamN));
-  const long long windows = (p.out_len + p.hop - 1) / p.hop;
-  for (long long ch = 0; ch < channels; ++ch) {
-    for (long long w0 = 0; w0 < windows; w0 += 2 * count) {
-      for (int t = 0; t < kFftThreads; ++t) {
-        wft::stream_load_thread(x + ch * p.tx, p, w0, buf.data(), count, t,
-                                kFftThreads);
-      }
-      filter(buf.data(), wft::kStreamLog2, tw, spec, count);
-      for (int t = 0; t < kFftThreads; ++t) {
-        wft::stream_store_thread(buf.data(), p, w0, y + ch * p.out_len, count,
-                                 t, kFftThreads);
-      }
-    }
-  }
-}
+};
 
 // fft_rows.cu's kernel: every thread of a CTA, phase by phase.
 template <int LOG_N, bool INV, int I>
-void rows_passes(Cf* v, float* smem, const Cf* tw) {
+void rows_passes(HostCta<LOG_N>& cta, const Cf* tw) {
   using Plan = wft::RowsPlan<LOG_N>;
-  auto sre = [&](int tid) { return smem + (tid / Plan::T) * Plan::stride; };
-  auto sim = [&](int tid) {
-    return smem + (Plan::rows + tid / Plan::T) * Plan::stride;
-  };
   if constexpr (I > 0) {
     for (int tid = 0; tid < Plan::threads; ++tid)
-      wft::rows_read<LOG_N>(v + tid * Plan::P, sre(tid), sim(tid),
+      wft::rows_read<LOG_N>(cta.regs(tid), cta.sre(tid), cta.sim(tid),
                             tid % Plan::T);
   }
   for (int tid = 0; tid < Plan::threads; ++tid)
-    wft::rows_pass<LOG_N, I, INV>(v + tid * Plan::P, tw, tid % Plan::T);
+    wft::rows_pass<LOG_N, I, INV>(cta.regs(tid), tw, tid % Plan::T);
   if constexpr (I + 1 < Plan::passes) {
     for (int tid = 0; tid < Plan::threads; ++tid)
-      wft::rows_write<LOG_N, I>(v + tid * Plan::P, sre(tid), sim(tid),
+      wft::rows_write<LOG_N, I>(cta.regs(tid), cta.sre(tid), cta.sim(tid),
                                 tid % Plan::T);
-    rows_passes<LOG_N, INV, I + 1>(v, smem, tw);
+    rows_passes<LOG_N, INV, I + 1>(cta, tw);
   }
 }
 
@@ -553,17 +567,69 @@ template <int LOG_N, bool INV>
 void rows_ctas(const float* xr, const float* xi, float* yr, float* yi,
                long long rows, const Cf* tw) {
   using Plan = wft::RowsPlan<LOG_N>;
-  std::vector<Cf> v(Plan::threads * Plan::P);
-  std::vector<float> smem(2 * Plan::rows * Plan::stride);
+  HostCta<LOG_N> cta;
   const float scale = INV ? 1.0f / static_cast<float>(Plan::n) : 1.0f;
   for (long long r0 = 0; r0 < rows; r0 += Plan::rows) {
     for (int tid = 0; tid < Plan::threads; ++tid)
       wft::rows_load<LOG_N>(xr, xi, rows, r0 + tid / Plan::T, tid % Plan::T,
-                            v.data() + tid * Plan::P);
-    rows_passes<LOG_N, INV, 0>(v.data(), smem.data(), tw);
+                            cta.regs(tid));
+    rows_passes<LOG_N, INV, 0>(cta, tw);
     for (int tid = 0; tid < Plan::threads; ++tid)
-      wft::rows_store<LOG_N>(v.data() + tid * Plan::P, rows,
-                             r0 + tid / Plan::T, tid % Plan::T, scale, yr, yi);
+      wft::rows_store<LOG_N>(cta.regs(tid), rows, r0 + tid / Plan::T,
+                             tid % Plan::T, scale, yr, yi);
+  }
+}
+
+// The filter's phases, every thread of a phase before the next: where the
+// kernels put a __syncthreads() (wft::filter_cta).
+template <int LOG_N, int PH = 0>
+void filter_phases(HostCta<LOG_N>& cta, const Cf* tw, const Cf* spec) {
+  using Plan = wft::RowsPlan<LOG_N>;
+  for (int tid = 0; tid < Plan::threads; ++tid)
+    wft::filter_phase<LOG_N, PH>(cta.regs(tid), tw, spec, cta.sre(tid),
+                                 cta.sim(tid), tid % Plan::T);
+  if constexpr (PH + 1 < wft::FilterPlan<LOG_N>::phases)
+    filter_phases<LOG_N, PH + 1>(cta, tw, spec);
+}
+
+// osfilt.cu's kernel over every CTA.
+template <int LOG_N>
+void osfilt_ctas(const void* seg, bool seg_u8, void* y, bool out_u8,
+                 long long batch, const Cf* tw, const Cf* spec) {
+  using Plan = wft::RowsPlan<LOG_N>;
+  HostCta<LOG_N> cta;
+  for (long long c = 0; c < wft::osfilt_ctas(batch, Plan::rows); ++c) {
+    for (int tid = 0; tid < Plan::threads; ++tid)
+      wft::osfilt_load<LOG_N>(seg, seg_u8, batch,
+                              2 * (c * Plan::rows + tid / Plan::T),
+                              tid % Plan::T, cta.regs(tid));
+    filter_phases<LOG_N>(cta, tw, spec);
+    for (int tid = 0; tid < Plan::threads; ++tid)
+      wft::osfilt_store<LOG_N>(cta.regs(tid), y, out_u8, batch,
+                               2 * (c * Plan::rows + tid / Plan::T),
+                               tid % Plan::T);
+  }
+}
+
+// osfilt_stream.cu's kernel over every CTA of every channel.
+void stream_ctas(const void* x, bool x_u8, void* y, bool out_u8,
+                 long long channels, long long tx, long long out_len, int hop,
+                 int start, const Cf* tw, const Cf* spec) {
+  using Plan = wft::StreamRows;
+  HostCta<wft::kStreamLog2> cta;
+  const long long per_channel = wft::stream_ctas_per_channel(out_len, hop);
+  for (long long ch = 0; ch < channels; ++ch) {
+    for (long long c = 0; c < per_channel; ++c) {
+      for (int tid = 0; tid < Plan::threads; ++tid)
+        wft::stream_load(x, x_u8, ch * tx, tx,
+                         2 * (c * Plan::rows + tid / Plan::T), hop, start,
+                         tid % Plan::T, cta.regs(tid));
+      filter_phases<wft::kStreamLog2>(cta, tw, spec);
+      for (int tid = 0; tid < Plan::threads; ++tid)
+        wft::stream_store(cta.regs(tid), y, out_u8, ch * out_len, out_len,
+                          2 * (c * Plan::rows + tid / Plan::T), hop,
+                          tid % Plan::T);
+    }
   }
 }
 
@@ -579,6 +645,17 @@ void rows_size(int log_n, bool inverse, const float* xr, const float* xi,
           : rows_ctas<LOG_N, false>(xr, xi, yr, yi, rows, tw);
 }
 
+template <int LOG_N>
+void osfilt_size(int log_n, const void* seg, bool seg_u8, void* y,
+                 bool out_u8, long long batch, const Cf* tw, const Cf* spec) {
+  if (log_n != LOG_N) {
+    if constexpr (LOG_N < wft::kFftMaxLog2)
+      osfilt_size<LOG_N + 1>(log_n, seg, seg_u8, y, out_u8, batch, tw, spec);
+    return;
+  }
+  osfilt_ctas<LOG_N>(seg, seg_u8, y, out_u8, batch, tw, spec);
+}
+
 }  // namespace
 
 extern "C" void fft_rows_host(const float* xr, const float* xi, float* yr,
@@ -590,50 +667,30 @@ extern "C" void fft_rows_host(const float* xr, const float* xi, float* yr,
 extern "C" void osfilt_host(const void* seg, void* y, long long batch,
                             int log_n, const Cf* tw, const Cf* spec,
                             int seg_is_u8, int out_u8) {
-  const uint8_t* s8 = static_cast<const uint8_t*>(seg);
-  const float* sf = static_cast<const float*>(seg);
-  uint8_t* y8 = static_cast<uint8_t*>(y);
-  float* yf = static_cast<float*>(y);
-  if (seg_is_u8) {
-    out_u8 ? osfilt_ctas(s8, y8, batch, log_n, tw, spec)
-           : osfilt_ctas(s8, yf, batch, log_n, tw, spec);
-  } else {
-    out_u8 ? osfilt_ctas(sf, y8, batch, log_n, tw, spec)
-           : osfilt_ctas(sf, yf, batch, log_n, tw, spec);
-  }
+  osfilt_size<1>(log_n, seg, seg_is_u8 != 0, y, out_u8 != 0, batch, tw, spec);
 }
 
 extern "C" void stream_host(const void* x, void* y, long long channels,
                             long long tx, long long out_len, int hop,
-                            int base, const Cf* tw, const Cf* spec,
+                            int start, const Cf* tw, const Cf* spec,
                             int x_is_u8, int out_u8) {
-  const wft::StreamPlan p{tx, out_len, hop, base};
-  const uint8_t* x8 = static_cast<const uint8_t*>(x);
-  const float* xf = static_cast<const float*>(x);
-  uint8_t* y8 = static_cast<uint8_t*>(y);
-  float* yf = static_cast<float*>(y);
-  if (x_is_u8) {
-    out_u8 ? stream_ctas(x8, y8, channels, p, tw, spec)
-           : stream_ctas(x8, yf, channels, p, tw, spec);
-  } else {
-    out_u8 ? stream_ctas(xf, y8, channels, p, tw, spec)
-           : stream_ctas(xf, yf, channels, p, tw, spec);
-  }
+  stream_ctas(x, x_is_u8 != 0, y, out_u8 != 0, channels, tx, out_len, hop,
+              start, tw, spec);
 }
 """
 
 
 @pytest.fixture(scope="module")
 def cores(tmp_path_factory):
-    """Kernel K's core (``csrc/wft_fft_rows.cuh``) and kernels L and M's
-    (``csrc/wft_fft.cuh``) built with g++."""
+    """The FFT kernels' cores (``csrc/wft_fft_rows.cuh``: kernel K's row
+    FFT and kernels L and M's filter) built with g++."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
     work = tmp_path_factory.mktemp("fft_cores")
     (work / "harness.cpp").write_text(_HARNESS)
     subprocess.run(["g++", "-std=c++17", "-O2", "-shared", "-fPIC",
                     "-I", str(_build.CSRC_DIR), "-o", str(work / "lib.so"),
-                    str(work / "harness.cpp")], check=True, timeout=120)
+                    str(work / "harness.cpp")], check=True, timeout=240)
     lib = ctypes.CDLL(str(work / "lib.so"))
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.fft_rows_host.argtypes = [vp, vp, vp, vp, ll, i32, vp, i32]
@@ -667,12 +724,16 @@ def test_fft_rows_core(cores, rng, nfft):
                 batch, mode)
 
 
-@pytest.mark.parametrize("nfft,taps", [(128, 2), (128, 9), (256, 63),
-                                       (512, 63), (2048, 63), (4096, 259)])
+@pytest.mark.parametrize("nfft,taps", [(2, 2), (16, 9), (32, 9), (128, 2),
+                                       (128, 9), (256, 63), (512, 63),
+                                       (2048, 63), (4096, 259),
+                                       (16384, 2048)])
 def test_osfilt_core(cores, rng, nfft, taps):
     """u8 and f32 segments, f32 and u8 out, an odd batch (the last FFT
-    carries one segment); u8 out within 1 of the plain version's where
-    the f32 and f64 sums round to either side of a tie."""
+    carries one segment); a single pass of radix 2 or 16, radix 2 last
+    (32, 512), radix 8 (2,048), radix 16 (4,096) and radix 4 on the CTA
+    of 1,024 threads (16,384); u8 out within 1 of the plain version's
+    where the f32 and f64 sums round to either side of a tie."""
     h = rng.standard_normal(taps) / np.sqrt(taps)
     spec = fft.FilterSpectrum(h, nfft)
     batch = 7
@@ -695,14 +756,16 @@ def test_osfilt_core(cores, rng, nfft, taps):
                 assert snr_db(want.numpy(), y) >= 120.0, (seg_u8, out_u8)
 
 
-@pytest.mark.parametrize("case", STREAM_CASES + [(2, 1, 63, 0),
-                                                 (1, 40001, 63, 0)],
-                         ids=STREAM_IDS + ["2-1-63-0", "1-40001-63-0"])
+@pytest.mark.parametrize(
+    "case", STREAM_CASES + HOP_EDGE_CASES + [(2, 1, 63, 0), (1, 40001, 63, 0)],
+    ids=STREAM_IDS + HOP_EDGE_IDS + ["2-1-63-0", "1-40001-63-0"])
 def test_stream_core(cores, rng, case):
-    """The eight stream cases, a one-sample stream and one of 40,001
-    samples (many CTAs); f32 and u8 in and out."""
+    """The eight stream cases, the window plan's edges, a one-sample
+    stream and one of 40,001 samples (many CTAs); f32 and u8 in and out,
+    against the plain version in the TPU kernel's window geometry."""
     channels, time, taps, off = case
-    _, d, m_shift, hop_tiles = fft._stream_geometry(taps, off)
+    d = fft._stream_geometry(taps, off)[1]
+    hop, start = fft.stream_plan(taps, off)
     tables = fft.FilterSpectrum(_taps(taps), 512, d=d)
     for x_u8 in (False, True):
         x = rng.integers(0, 256, size=(channels, time + off), dtype=np.uint8)
@@ -712,8 +775,7 @@ def test_stream_core(cores, rng, case):
         for out_u8 in (False, True):
             y = np.empty((channels, time), np.uint8 if out_u8 else np.float32)
             cores.stream_host(x.ctypes.data, y.ctypes.data, channels,
-                              time + off, time, hop_tiles * 128,
-                              128 * (m_shift - (4 - hop_tiles)),
+                              time + off, time, hop, start,
                               tables.twiddles.data_ptr(),
                               tables.spectrum.data_ptr(),
                               int(x_u8), int(out_u8))

@@ -120,8 +120,8 @@ _SIGNATURES = {
         [_VOIDP, _VOIDP, _LL, _INT, _VOIDP, _VOIDP, _INT, _INT, _VOIDP],
         _INT,
     ),
-    # x, y, channels, tx, out_len, hop, base, twiddles, spectrum (device),
-    # x_is_u8, out_u8, stream
+    # x, y, channels, tx, out_len, hop, first window start, twiddles,
+    # spectrum (device), x_is_u8, out_u8, stream
     "wft_osfilt_stream": (
         [_VOIDP, _VOIDP, _LL, _LL, _LL, _INT, _INT, _VOIDP, _VOIDP, _INT,
          _INT, _VOIDP],

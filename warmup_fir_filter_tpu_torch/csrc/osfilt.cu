@@ -13,80 +13,97 @@
 // host frames the segments and discards the first L - 1 outputs of each,
 // as there.
 //
-// A CTA of 512 threads takes 2 max(1, 4,096 / n) segments, two to a complex
-// FFT (real and imaginary parts: the filter is real, so one transform
-// filters both): DIF forward, the product with the spectrum in the DIF's
-// bit-reversed order (1/n folded in), DIT inverse with conjugated
-// twiddles, so no pass permutes the points (wft_fft.cuh).
+// The design (wft_fft_rows.cuh, the filter): two segments to a complex
+// transform (real and imaginary parts: the filter is real, so one
+// transform filters both), each transform on n / 16 threads holding 16
+// points each in registers (all n below 16 points), Stockham passes of
+// radix 16 there, the product with the natural-order spectrum in registers
+// between the forward's last pass and the inverse's first, so a 2,048-point
+// filter makes four exchanges through shared memory.  A CTA takes max(1,
+// 128 / T) segment pairs; loads and stores are coalesced across a warp.
+// One template instance a size (14); the sample types are a branch around
+// the load and the store.
 //
 // What bounds it on an H100: at config 4 with nfft = 2,048 pinned, 80,576
 // segments of 2,048 f32 read and written are 1.32 GB (0.39 ms at
 // 3.35 TB/s), the roof.  Counting 5 n log2 n per complex transform and
 // 6 n for its product with the spectrum, with two real segments to one
 // complex forward, product and inverse, a segment is 5 n log2 n + 3 n and
-// the 80,576 segments 9.6 G operations (0.14 ms at 67 TFLOP/s).  The
-// kernel is bound by shared-memory traffic, a pass per two stages.
+// the 80,576 segments 9.6 G operations (0.14 ms at 67 TFLOP/s).  As for
+// kernel M, the issue rate of the passes holds the kernel at about twice
+// its bytes' time; at 16,384 points (1,024 threads, 64 registers) it
+// spills.
 
 #include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-#include "wft_fft.cuh"
+#include "wft_fft_rows.cuh"
 
 namespace {
 
 constexpr int kDefaultSharedBytes = 48 * 1024;
 
-template <typename T, typename U>
-__global__ void __launch_bounds__(wft::kFftThreads)
-osfilt_kernel(const T* __restrict__ seg, U* __restrict__ y, long long batch,
-              int log_n, const wft::Cf* __restrict__ tw,
-              const wft::Cf* __restrict__ spec) {
-  extern __shared__ wft::Cf smem[];
-  const int count = wft::fft_per_cta(log_n);
-  wft::Cf* buf = smem;
-  wft::Cf* tw_s = buf + count * wft::fft_slots(1 << log_n);
-  const int t = threadIdx.x;
-  const long long s0 = 2LL * blockIdx.x * count;
-  wft::fft_stage_twiddles(tw, tw_s, log_n, t, wft::kFftThreads);
-  wft::osfilt_load_thread(seg, batch, log_n, s0, buf, count, t,
-                          wft::kFftThreads);
-  for (int ph = 0; ph < wft::fft_filter_phases(log_n); ++ph) {
-    __syncthreads();
-    wft::fft_filter_phase(buf, log_n, ph, tw_s, spec, count, t,
-                          wft::kFftThreads);
-  }
-  __syncthreads();
-  wft::osfilt_store_thread(buf, batch, log_n, s0, y, count, t,
-                           wft::kFftThreads);
+template <int LOG_N>
+__global__ void __launch_bounds__(wft::RowsPlan<LOG_N>::threads)
+osfilt_kernel(const void* __restrict__ seg, void* __restrict__ y,
+              long long batch, const wft::Cf* __restrict__ tw,
+              const wft::Cf* __restrict__ spec, int seg_is_u8, int out_u8) {
+  using Plan = wft::RowsPlan<LOG_N>;
+  extern __shared__ float smem[];
+  const int t = static_cast<int>(threadIdx.x) % Plan::T;
+  const int r = static_cast<int>(threadIdx.x) / Plan::T;
+  const long long s =
+      2 * (static_cast<long long>(blockIdx.x) * Plan::rows + r);
+  float* sre = smem + r * Plan::stride;
+  float* sim = smem + (Plan::rows + r) * Plan::stride;
+  wft::Cf v[Plan::P];
+  wft::osfilt_load<LOG_N>(seg, seg_is_u8 != 0, batch, s, t, v);
+  wft::filter_cta<LOG_N>(v, tw, spec, sre, sim, t);
+  wft::osfilt_store<LOG_N>(v, y, out_u8 != 0, batch, s, t);
 }
 
-template <typename T, typename U>
-int launch(const void* seg, void* y, long long batch, int log_n,
-           const void* tw, const void* spec, cudaStream_t stream) {
-  const int count = wft::fft_per_cta(log_n);
-  const long long ctas = (batch + 2LL * count - 1) / (2LL * count);
+template <int LOG_N>
+int launch(const void* seg, void* y, long long batch, const wft::Cf* tw,
+           const wft::Cf* spec, int seg_is_u8, int out_u8,
+           cudaStream_t stream) {
+  using Plan = wft::RowsPlan<LOG_N>;
+  const long long ctas = wft::osfilt_ctas(batch, Plan::rows);
   if (ctas > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const int shared_bytes = wft::fft_shared_bytes(log_n);
-  if (shared_bytes > kDefaultSharedBytes) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        osfilt_kernel<T, U>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        shared_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const int shared = static_cast<int>(Plan::shared_bytes);
+  if (shared > kDefaultSharedBytes) {
+    static const cudaError_t set = cudaFuncSetAttribute(
+        osfilt_kernel<LOG_N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        shared);
+    if (set != cudaSuccess) return static_cast<int>(set);
   }
-  osfilt_kernel<T, U><<<static_cast<unsigned>(ctas), wft::kFftThreads,
-                        shared_bytes, stream>>>(
-      static_cast<const T*>(seg), static_cast<U*>(y), batch, log_n,
-      static_cast<const wft::Cf*>(tw), static_cast<const wft::Cf*>(spec));
+  osfilt_kernel<LOG_N><<<static_cast<unsigned>(ctas), Plan::threads, shared,
+                         stream>>>(seg, y, batch, tw, spec, seg_is_u8,
+                                   out_u8);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int LOG_N>
+int launch_size(int log_n, const void* seg, void* y, long long batch,
+                const wft::Cf* tw, const wft::Cf* spec, int seg_is_u8,
+                int out_u8, cudaStream_t stream) {
+  if (log_n != LOG_N) {
+    if constexpr (LOG_N < wft::kFftMaxLog2) {
+      return launch_size<LOG_N + 1>(log_n, seg, y, batch, tw, spec, seg_is_u8,
+                                    out_u8, stream);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return launch<LOG_N>(seg, y, batch, tw, spec, seg_is_u8, out_u8, stream);
 }
 
 }  // namespace
 
 // seg (batch, 2^log_n) uint8 when seg_is_u8 else f32; y the same shape,
-// uint8 when out_u8 else f32; twiddles (2^log_n / 2) and spectrum (2^log_n)
-// complex f32: device pointers.
+// uint8 when out_u8 else f32; twiddles (2^log_n / 2) and spectrum (2^log_n,
+// natural order, 1 / 2^log_n folded in) complex f32: device pointers.
 extern "C" int wft_osfilt(const void* seg, void* y, long long batch,
                           int log_n, const void* twiddles,
                           const void* spectrum, int seg_is_u8, int out_u8,
@@ -94,15 +111,8 @@ extern "C" int wft_osfilt(const void* seg, void* y, long long batch,
   if (batch < 1 || log_n < 1 || log_n > wft::kFftMaxLog2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (seg_is_u8) {
-    return out_u8 ? launch<uint8_t, uint8_t>(seg, y, batch, log_n, twiddles,
-                                             spectrum, s)
-                  : launch<uint8_t, float>(seg, y, batch, log_n, twiddles,
-                                           spectrum, s);
-  }
-  return out_u8 ? launch<float, uint8_t>(seg, y, batch, log_n, twiddles,
-                                         spectrum, s)
-                : launch<float, float>(seg, y, batch, log_n, twiddles,
-                                       spectrum, s);
+  return launch_size<1>(log_n, seg, y, batch,
+                        static_cast<const wft::Cf*>(twiddles),
+                        static_cast<const wft::Cf*>(spectrum), seg_is_u8,
+                        out_u8, static_cast<cudaStream_t>(stream));
 }

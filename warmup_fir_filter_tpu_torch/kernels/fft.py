@@ -13,14 +13,22 @@ Counterpart of ``warmup_fir_filter_tpu/kernels/fft_pallas.py``:
   than 257 taps;
 - kernel M (``csrc/osfilt_stream.cu``, ports K14, ``:622``): the same
   filter by 512-point overlap-save straight off the raw ``(C, T)`` stream,
-  in the TPU kernel's window geometry (:func:`_stream_geometry`); wrapper
-  :func:`osfilt_stream`, entry :func:`fir_overlap_save_stream`, and the
-  two entries above when nfft is automatic and
-  :func:`stream_kernel_supported` holds.
+  its windows at the full hop of 512 − L + 1 valid outputs
+  (:func:`stream_plan`) instead of the TPU kernel's lane-aligned hop of
+  256 or 384 (:func:`_stream_geometry`); wrapper :func:`osfilt_stream`,
+  entry :func:`fir_overlap_save_stream`, and the two entries above when
+  nfft is automatic and :func:`stream_kernel_supported` holds (the JAX
+  entries' routing).
 
-Kernels L and M share one shared-memory radix-2^2 FFT core
-(``csrc/wft_fft.cuh``).  The table builders are the JAX module's, as numpy, so the tests can hold
-them equal: :func:`factor_nfft`, :func:`_dft_tables`,
+The bound of L and M on an H100 is their device-memory traffic (about
+0.38 ms for config 4's 1.28 GB in f32).  So that trips through shared
+memory do not hold them far above it, both keep their points in
+registers: they run the filter core of ``csrc/wft_fft_rows.cuh`` on
+kernel K's passes, 16 points a thread, the forward, the product with the
+natural-order spectrum and the inverse with four exchanges through shared
+memory a 512- or 2,048-point filter, two real segments or windows a
+complex transform.  The table builders are the JAX module's, as numpy, so
+the tests can hold them equal: :func:`factor_nfft`, :func:`_dft_tables`,
 :func:`_osfilt_spectrum`, :func:`_osfilt_spectrum_shifted`,
 :func:`_stream_geometry` and :func:`_osfilt_fold_tables` (f32, from f64:
 the card has native f32, so there is no bf16 hi/lo split).  The plain
@@ -30,8 +38,8 @@ input's device: the 4-step ``nfft = N1·128`` DFT with those tables as
 matmuls, the twiddle multiply between them and the scrambled spectrum;
 for the stream, the folded per-k1 tables of the TPU stream kernel over the
 windows of :func:`_stream_geometry`.  The kernels compute the same
-functions with their own FFTs, so they agree with the plain versions to
-f32 rounding (>= 120 dB), not bit for bit.
+functions with their own FFTs (and M with its own windows), so they agree
+with the plain versions to f32 rounding (>= 120 dB), not bit for bit.
 
 The TPU layout helpers (the m-layout and spectrum (un)scrambling, the bf16
 operand split, ``_auto_block_rows``, ``block_rows``, ``r_windows``) have no
@@ -176,6 +184,19 @@ def stream_kernel_supported(num_taps: int, off: int = 0,
             and d <= nfft // 2 + 1 - num_taps)
 
 
+def stream_plan(num_taps: int, off: int) -> tuple[int, int]:
+    """Kernel M's windows: ``(hop, start)``.
+
+    Window ``w`` of a channel covers samples ``[w·hop + start, w·hop +
+    start + 512)`` (zero outside the stream); its circular outputs ``p ∈
+    [L − 1, 512)`` are the call's outputs ``q = w·hop + p − (L − 1)``.  So
+    ``hop = 512 − L + 1``, every valid output of a window, and ``start =
+    off + L//2 − (L − 1)``; the filter spectrum is h's own, with no shift.
+    """
+    return (STREAM_NFFT - num_taps + 1,
+            off + num_taps // 2 - (num_taps - 1))
+
+
 def _osfilt_spectrum_shifted(h64, nfft: int, d: int):
     """Scrambled-order filter spectrum with the alignment shift folded
     in (circularly delays the filtered output by ``d`` samples)."""
@@ -205,16 +226,6 @@ def _log2(nfft: int) -> int:
     return nfft.bit_length() - 1
 
 
-def bit_reversal(nfft: int) -> np.ndarray:
-    """``r[k]``: k with its log2(nfft) bits reversed."""
-    bits = _log2(nfft)
-    k = np.arange(nfft)
-    r = np.zeros_like(k)
-    for b in range(bits):
-        r |= ((k >> b) & 1) << (bits - 1 - b)
-    return r
-
-
 def fft_twiddles(nfft: int) -> np.ndarray:
     """``exp(-2πi·k/nfft)`` for k < nfft/2, computed in float64, as
     (nfft/2, 2) f32 re/im pairs: the kernels' twiddle table."""
@@ -232,14 +243,13 @@ class FilterSpectrum(nn.Module):
     """A filter's spectrum for kernels L and M on one device.
 
     ``spectrum`` (buffer, (nfft, 2) f32) is what the kernels read:
-    ``H_d[bit_reversal(k)] / nfft``, the spectrum of ``h`` circularly
-    delayed by ``d`` (the stream kernel's alignment shift; 0 for the
-    framed filter), computed in float64, in the order the DIF transform
-    leaves the points, with the inverse's scale folded in; ``twiddles``
-    (buffer) is :func:`fft_twiddles`.  ``hc`` and ``hs`` (numpy, (N1, N2)
-    f32) are the scrambled spectrum of the JAX package
-    (:func:`_osfilt_spectrum`, or :func:`_osfilt_spectrum_shifted` for
-    ``d > 0``), which the plain versions multiply by.
+    ``H[k] / nfft``, h's spectrum in natural order, computed in float64,
+    with the inverse's scale folded in (kernel M places its windows so that
+    it needs no shift); ``twiddles`` (buffer) is :func:`fft_twiddles`.
+    ``hc`` and ``hs`` (numpy, (N1, N2) f32) are the scrambled spectrum of
+    the JAX package (:func:`_osfilt_spectrum`, or
+    :func:`_osfilt_spectrum_shifted` with the stream kernel's alignment
+    shift ``d > 0``), which the plain versions multiply by.
     """
 
     def __init__(self, h, nfft: int, *, d: int = 0,
@@ -252,9 +262,7 @@ class FilterSpectrum(nn.Module):
         self.d = d
         self.hc, self.hs = (_osfilt_spectrum_shifted(h64, nfft, d) if d
                             else _osfilt_spectrum(h64, nfft))
-        k = np.arange(nfft)
-        h_freq = np.fft.fft(h64, nfft) * np.exp(-2j * np.pi * k * d / nfft)
-        spec = h_freq[bit_reversal(nfft)] / nfft
+        spec = np.fft.fft(h64, nfft) / nfft
         device = torch.device(device)
         self.register_buffer("spectrum", torch.as_tensor(
             np.stack([spec.real, spec.imag], -1).astype(np.float32),
@@ -494,7 +502,7 @@ def osfilt_stream(x: torch.Tensor, tables: FilterSpectrum, *, off: int,
             tables.num_taps, off):
         raise ValueError(f"stream kernel unsupported for num_taps="
                          f"{tables.num_taps}, off={off}, nfft={tables.nfft}")
-    _, d, m_shift, hop_tiles = _stream_geometry(tables.num_taps, off)
+    _, d, _, _ = _stream_geometry(tables.num_taps, off)
     if d != tables.d:
         raise ValueError(f"the spectrum carries the shift d={tables.d}; "
                          f"off={off} needs d={d}")
@@ -512,12 +520,12 @@ def osfilt_stream(x: torch.Tensor, tables: FilterSpectrum, *, off: int,
                     device=x.device)
     if y.numel() == 0 or x.shape[1] == 0:
         return y.zero_()
+    hop, start = stream_plan(tables.num_taps, off)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         code = lib.wft_osfilt_stream(
-            x.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1], out_len,
-            hop_tiles * LANE, LANE * (m_shift - (4 - hop_tiles)),
-            tables.twiddles.data_ptr(), tables.spectrum.data_ptr(),
+            x.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1], out_len, hop,
+            start, tables.twiddles.data_ptr(), tables.spectrum.data_ptr(),
             int(x.dtype == torch.uint8), int(out_u8), _build.stream_of(x),
         )
     _build.check_launch(lib, code, "osfilt_stream")

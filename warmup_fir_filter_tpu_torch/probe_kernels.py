@@ -1,20 +1,37 @@
 #!/usr/bin/env python3
-"""Probe of kernels A (``fir_band``) and K (``fft_rows``) on one GPU.
+"""Probe of kernels A (``fir_band``), K (``fft_rows``), L (``osfilt``) and
+M (``osfilt_stream``) on one GPU.
 
     python3 warmup_fir_filter_tpu_torch/probe_kernels.py check
-        build with ``-Xptxas -v`` (registers, stack and spills of
-        ``fir_band.cu`` and ``fft_rows.cu``), then kernel A against its
-        plain version over taps 1-257 x Q-formats x widths 1-40,000 and
-        misaligned inputs (``torch.equal``), and kernel K against its
-        float64 plain version at every size 2-16,384 (SNR >= 120 dB, within
-        2e-4 of ``torch.fft``); exits 1 on a mismatch.
+        ``nvcc -Xptxas -v`` on ``fir_band.cu``, ``fft_rows.cu``,
+        ``osfilt.cu`` and ``osfilt_stream.cu`` (registers, stack and spills
+        of each kernel, all four compiles started together), then kernel A
+        against its plain version over taps 1-257 x Q-formats x widths
+        1-40,000 and misaligned inputs (``torch.equal``), kernel K against
+        its float64 plain version at every size 2-16,384 (SNR >= 120 dB,
+        within 2e-4 of ``torch.fft``), kernel L at every nfft 2-16,384 and
+        kernel M over its stream cases and window-plan edges against their
+        float64 plain versions (SNR >= 120 dB; u8 out within 1 on under
+        0.1%); exits 1 on a mismatch.
     python3 warmup_fir_filter_tpu_torch/probe_kernels.py times TREE LABEL
         CUDA-event medians (7 windows of 10 calls) of kernel A at 19,456 x
         8,192 u8 for 3-257 taps and on the 5-tap stream's 4,000 x 16,256
-        window rows, a ``copy_``, and kernel K and ``torch.fft.fft`` at
-        8,192 x 2,048, 1,024 x 16,384 and 65,536 x 256, for the port in
-        the checkout at TREE (this one, or an older commit unpacked with
-        ``git archive``), each line tagged LABEL.
+        window rows, a ``copy_``, kernel K and ``torch.fft.fft`` at 8,192 x
+        2,048, 1,024 x 16,384 and 65,536 x 256, kernel C (``fir_window``)
+        at 1,001 taps on a long-tap stream block (16 x 4,001,000 u8), and
+        at BASELINE config 4 (16 x 10,000,000, 63 taps) kernel M (f32, and
+        u8 in and out), kernel L over the stream framed at nfft 2,048,
+        ``F.conv1d`` (TF32 off) and the ``torch.fft`` overlap-save, for the
+        port in the checkout at TREE (this one, or an older commit unpacked
+        with ``git archive``), each line tagged LABEL.
+    python3 warmup_fir_filter_tpu_torch/probe_kernels.py variant TREE LABEL
+        For a variant of the FFT kernels' sources in the checkout at TREE:
+        ``-Xptxas -v`` of ``fft_rows.cu``, ``osfilt.cu`` and
+        ``osfilt_stream.cu`` as one line a source (registers of each
+        instance, and its stack and spill bytes where not 0), kernels M
+        and L against their plain versions at config 4 (SNR), and the
+        CUDA-event medians of M (f32; u8 in and out), L over config 4
+        framed at nfft 2,048 and K at 8,192 x 2,048.
 
 Run it from the repository root; ``chip_smoke.py`` is the full check.
 """
@@ -24,6 +41,98 @@ import subprocess
 import sys
 import time
 
+#: Kernel M's (C, T, L, off) in ``check``: chip_smoke.py's STREAM_FFT_CASES.
+STREAM_CASES = ((3, 2000, 63, 0), (2, 1111, 63, 31), (1, 700, 5, 0),
+                (4, 4096, 129, 64), (2, 900, 257, 128), (2, 513, 63, 62),
+                (3, 300, 63, 0), (2, 257, 1, 0), (2, 1, 63, 0),
+                (2, 511, 63, 0), (2, 40001, 63, 0), (2, 3000, 1, 0),
+                (2, 3000, 2, 0), (2, 3000, 129, 0), (2, 3000, 257, 0),
+                (2, 449, 63, 0), (2, 450, 63, 0), (2, 451, 63, 0),
+                (2, 3000, 63, 31), (2, 3000, 63, 62))
+PTXAS_SOURCES = ("fir_band.cu", "fft_rows.cu", "osfilt.cu", "osfilt_stream.cu")
+
+
+def ptxas(label: str, sources=PTXAS_SOURCES) -> int:
+    """``nvcc -Xptxas -v`` on ``sources``, all started together: one line a
+    source with each kernel instance's registers, and its stack and spill
+    bytes where they are not 0.  Returns the number of failed compiles."""
+    import re
+
+    from warmup_fir_filter_tpu_torch import _build
+
+    nvcc = _build.find_nvcc()
+    _build.DEFAULT_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {src: subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+         str(_build.CSRC_DIR), "-c", "-o",
+         str(_build.DEFAULT_BUILD_DIR / f"ptxas_{src}.o"),
+         str(_build.CSRC_DIR / src)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src in sources}
+    def kernel_name(mangled: str) -> str:
+        """``name<template ints>`` of a mangled entry: the length-prefixed
+        part that ends in ``_kernel``, then the ints of its arguments."""
+        for m in re.finditer(r"\d+", mangled):
+            for k in range(m.start(), m.end()):  # a hash may end in digits
+                part = mangled[m.end():m.end() + int(mangled[k:m.end()])]
+                if part.endswith("_kernel"):
+                    rest = mangled[m.end() + len(part):].split("EEv")[0]
+                    ints = re.findall(r"L[ib](-?\d+)E", rest)
+                    return f"{part}<{','.join(ints)}>"
+        return mangled
+
+    failed = 0
+    for src, proc in procs.items():
+        _, err = proc.communicate()
+        (_build.DEFAULT_BUILD_DIR / f"ptxas_{src}.o").unlink(missing_ok=True)
+        name, rows = None, []
+        for ln in err.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                name = kernel_name(m.group(1))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                rows.append(f"{name}:{m.group(1)}r")
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill", ln)
+            if m and (m.group(1) != "0" or m.group(2) != "0"):
+                rows.append(f"[{name} stack {m.group(1)} spill {m.group(2)}]")
+            if "error" in ln:
+                rows.append(ln.strip())
+        print(f"[{label}] ptxas {src} rc={proc.returncode}: " + " ".join(rows),
+              flush=True)
+        failed += proc.returncode != 0
+    print(f"[{label}] ptxas {time.perf_counter() - t0:.1f} s", flush=True)
+    return failed
+
+
+def median_ms(fn, reps=7, calls=10) -> tuple[float, float, float]:
+    """Median, least and most ms a call of ``fn`` over ``reps`` CUDA-event
+    windows of ``calls`` back-to-back calls, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / calls)
+    return statistics.median(out), min(out), max(out)
+
+
+def snr_db(want, got) -> float:
+    import numpy as np
+
+    noise = float((got.double() - want.double()).square().sum())
+    return (10 * np.log10(float(want.double().square().sum()) / noise)
+            if noise else 999.0)
+
 
 def check() -> int:
     import numpy as np
@@ -32,32 +141,15 @@ def check() -> int:
     sys.path.insert(0, os.getcwd())
     from warmup_fir_filter_tpu_torch import _build
     from warmup_fir_filter_tpu_torch.kernels.fft import (
-        fft_rows, fft_rows_plain)
+        FilterSpectrum, _stream_geometry, _u8_stage, fft_rows, fft_rows_plain,
+        osfilt, osfilt_plain, osfilt_stream, osfilt_stream_plain)
     from warmup_fir_filter_tpu_torch.kernels.fir_band import (
         FixedFir1d, fir_band_plain)
     from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
+    from warmup_fir_filter_tpu_torch.ops.resample import design_lowpass
 
-    nvcc = _build.find_nvcc()
-    _build.DEFAULT_BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for src in ("fir_band.cu", "fft_rows.cu"):
-        obj = _build.DEFAULT_BUILD_DIR / f"ptxas_{src}.o"
-        t0 = time.perf_counter()
-        p = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
-                            str(_build.CSRC_DIR), "-c", "-o", str(obj),
-                            str(_build.CSRC_DIR / src)], capture_output=True,
-                           text=True)
-        obj.unlink(missing_ok=True)
-        lines = [ln for ln in p.stderr.splitlines()
-                 if "registers" in ln or "spill" in ln or "error" in ln]
-        print(f"[ptxas] {src} rc={p.returncode} "
-              f"{time.perf_counter() - t0:.1f} s")
-        for ln in lines:
-            if "error" in ln or "Used" in ln or (
-                    "spill" in ln and " 0 bytes spill" not in ln):
-                print("  ", ln.strip())
-        if p.returncode:
-            print(p.stderr[-3000:])
-            return 1
+    if ptxas("check"):
+        return 1
     t0 = time.perf_counter()
     _build.load_library()
     print(f"[build] {time.perf_counter() - t0:.2f} s")
@@ -110,9 +202,7 @@ def check() -> int:
                                   ("i", xi, True)):
                 got = torch.stack(fft_rows(xr, im, inverse=inv)).double()
                 want = torch.stack(fft_rows_plain(xr, im, inverse=inv))
-                noise = float((got - want).square().mean())
-                snr = (10 * np.log10(float(want.square().mean()) / noise)
-                       if noise else 999)
+                snr = snr_db(want, got)
                 worst = min(worst, snr)
                 x64 = torch.complex(xr.double(), torch.zeros_like(
                     xr, dtype=torch.float64) if im is None else im.double())
@@ -123,7 +213,64 @@ def check() -> int:
                     print("K FAIL", n, batch, mode, snr, err)
     torch.cuda.synchronize()
     print(f"[K] min SNR {worst:.1f} dB, {kf} failures")
-    return 1 if fails or kf else 0
+
+    def u8_ok(got, want64) -> tuple[bool, int, float]:
+        diff = (got.int() - _u8_stage(want64.float()).int()).abs()
+        share = float((diff != 0).double().mean()) if diff.numel() else 0.0
+        top = int(diff.max()) if diff.numel() else 0
+        return top <= 1 and share < 1e-3, top, share
+
+    fl, worst_l = 0, 200.0
+    for b in range(1, 15):
+        nfft = 1 << b
+        for taps in (2, 9, 63):
+            if taps > nfft:
+                continue
+            spec = FilterSpectrum(rng.uniform(0.0, 2.0 / taps, taps), nfft,
+                                  device="cuda")
+            for batch in (7, 1001):
+                seg = torch.from_numpy(rng.integers(
+                    0, 256, size=(batch, nfft), dtype=np.uint8)).cuda()
+                want = osfilt_plain(seg, spec)
+                for x in (seg, seg.float()):
+                    snr = snr_db(want, osfilt(x, spec, out_u8=False))
+                    worst_l = min(worst_l, snr)
+                    ok, top, share = u8_ok(osfilt(x, spec, out_u8=True), want)
+                    if snr < 120 or not ok:
+                        fl += 1
+                        print("L FAIL", nfft, taps, batch, x.dtype, snr, top,
+                              share)
+    torch.cuda.synchronize()
+    print(f"[L] min SNR {worst_l:.1f} dB, {fl} failures")
+
+    fm, worst_m = 0, 200.0
+    for channels, time_len, taps, off in STREAM_CASES:
+        if taps == 1:
+            h = np.array([1.0])
+        elif taps == 2:
+            golden = (np.sqrt(5.0) - 1.0) / 2.0
+            h = np.array([golden, 1.0 - golden])
+        else:
+            h = design_lowpass(taps, 0.2)
+        tables = FilterSpectrum(h, 512, d=_stream_geometry(taps, off)[1],
+                                device="cuda")
+        shape = (channels, time_len + off)
+        x = torch.randn(shape, device="cuda", generator=gen)
+        snr = snr_db(osfilt_stream_plain(x, tables, off=off, out_len=time_len),
+                     osfilt_stream(x, tables, off=off, out_len=time_len,
+                                   out_u8=False))
+        worst_m = min(worst_m, snr)
+        x8 = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
+                           generator=gen)
+        ok, top, share = u8_ok(
+            osfilt_stream(x8, tables, off=off, out_len=time_len, out_u8=True),
+            osfilt_stream_plain(x8, tables, off=off, out_len=time_len))
+        if snr < 120 or not ok:
+            fm += 1
+            print("M FAIL", channels, time_len, taps, off, snr, top, share)
+    torch.cuda.synchronize()
+    print(f"[M] min SNR {worst_m:.1f} dB, {fm} failures")
+    return 1 if fails or kf or fl or fm else 0
 
 
 def times(tree: str, label: str) -> None:
@@ -132,32 +279,29 @@ def times(tree: str, label: str) -> None:
     os.chdir(root)
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from warmup_fir_filter_tpu_torch import _build
-    from warmup_fir_filter_tpu_torch.kernels.fft import fft_rows
+    from warmup_fir_filter_tpu_torch.kernels.fft import (
+        FilterSpectrum, _osfilt_segments, _stream_geometry, fft_rows, osfilt,
+        osfilt_stream)
     from warmup_fir_filter_tpu_torch.kernels.fir_band import FixedFir1d
+    from warmup_fir_filter_tpu_torch.kernels.fir_window import FixedFirWindow
     from warmup_fir_filter_tpu_torch.models.filters import FILTER_BANKS
+    from warmup_fir_filter_tpu_torch.ops.fftfilt import fir_overlap_save
     from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
     from warmup_fir_filter_tpu_torch.ops.resample import design_lowpass
 
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     _build.load_library()
     print(f"[{label}] build {time.perf_counter() - t0:.2f} s", flush=True)
 
-    def med(fn, reps=7, calls=10):
-        fn()
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(calls):
-                fn()
-            b.record()
-            b.synchronize()
-            out.append(a.elapsed_time(b) / calls)
-        return statistics.median(out), min(out), max(out)
+    def report(runs: dict) -> None:
+        for name, fn in runs.items():
+            m, lo, hi = median_ms(fn)
+            print(f"[{label}] {name}: median {m:.4f} ms (min {lo:.4f}, "
+                  f"max {hi:.4f})", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randint(0, 256, (19456, 8192), dtype=torch.uint8, device="cuda",
@@ -182,8 +326,83 @@ def times(tree: str, label: str) -> None:
         runs[f"K {rows}x{n}"] = (lambda a=xr, b=xi:
                                  fft_rows(a, b, inverse=False))
         runs[f"torch.fft.fft {rows}x{n}"] = (lambda cc=c: torch.fft.fft(cc))
-    for name, fn in runs.items():
-        m, lo, hi = med(fn)
+    report(runs)
+    del x, win, dst, runs
+
+    block = torch.randint(0, 256, (16, 4_001_000), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+    fir_c = FixedFirWindow.from_numpy(design_lowpass(1001, 0.2), qf, "cuda")
+    report({"C 1001 taps stream block 16x4001000": lambda: fir_c(block)})
+    del block
+
+    # BASELINE config 4: 16 x 10,000,000 u8 (as f32 and as u8), 63 taps.
+    x8 = torch.randint(0, 256, (16, 10_000_000), dtype=torch.uint8,
+                       device="cuda", generator=gen)
+    x4 = x8.float()
+    h = design_lowpass(63, 0.25)
+    tables = FilterSpectrum(h, 512, d=_stream_geometry(63, 0)[1],
+                            device="cuda")
+    seg, _, _ = _osfilt_segments(x4, 63, 2048)
+    spec = FilterSpectrum(h, 2048, device="cuda")
+    weight = torch.as_tensor(h[::-1].copy(), dtype=torch.float32,
+                             device="cuda").view(1, 1, -1)
+    x3 = x4.unsqueeze(1)
+    out_len = x4.shape[1]
+    report({
+        "M config4 f32": lambda: osfilt_stream(x4, tables, off=0,
+                                               out_len=out_len, out_u8=False),
+        "M config4 u8": lambda: osfilt_stream(x8, tables, off=0,
+                                              out_len=out_len, out_u8=True),
+        f"L {seg.shape[0]}x2048 segments f32": lambda: osfilt(
+            seg, spec, out_u8=False),
+        "F.conv1d config4 (TF32 off)": lambda: F.conv1d(x3, weight,
+                                                        padding=31),
+        "torch.fft overlap-save config4": lambda: fir_overlap_save(x4, h),
+    })
+
+
+def variant(tree: str, label: str) -> None:
+    root = os.path.abspath(tree)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+
+    from warmup_fir_filter_tpu_torch import _build
+    from warmup_fir_filter_tpu_torch.kernels.fft import (
+        FilterSpectrum, _osfilt_segments, _stream_geometry, fft_rows, osfilt,
+        osfilt_plain, osfilt_stream, osfilt_stream_plain)
+    from warmup_fir_filter_tpu_torch.ops.resample import design_lowpass
+
+    ptxas(label, PTXAS_SOURCES[1:])
+    t0 = time.perf_counter()
+    _build.load_library()
+    print(f"[{label}] build {time.perf_counter() - t0:.2f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x8 = torch.randint(0, 256, (16, 10_000_000), dtype=torch.uint8,
+                       device="cuda", generator=gen)
+    x4 = x8.float()
+    h = design_lowpass(63, 0.25)
+    tables = FilterSpectrum(h, 512, d=_stream_geometry(63, 0)[1],
+                            device="cuda")
+    seg, _, _ = _osfilt_segments(x4, 63, 2048)
+    spec = FilterSpectrum(h, 2048, device="cuda")
+    n = x4.shape[1]
+    snr_m = snr_db(osfilt_stream_plain(x4, tables, off=0, out_len=n),
+                   osfilt_stream(x4, tables, off=0, out_len=n, out_u8=False))
+    snr_l = snr_db(osfilt_plain(seg[:20000], spec),
+                   osfilt(seg[:20000], spec, out_u8=False))
+    print(f"[{label}] SNR M {snr_m:.2f} dB, L {snr_l:.2f} dB", flush=True)
+    xr = torch.randn((8192, 2048), device="cuda", generator=gen)
+    xi = torch.randn((8192, 2048), device="cuda", generator=gen)
+    for name, fn in {
+        "M f32": lambda: osfilt_stream(x4, tables, off=0, out_len=n,
+                                       out_u8=False),
+        "M u8": lambda: osfilt_stream(x8, tables, off=0, out_len=n,
+                                      out_u8=True),
+        "L 2048": lambda: osfilt(seg, spec, out_u8=False),
+        "K 8192x2048": lambda: fft_rows(xr, xi, inverse=False),
+    }.items():
+        m, lo, hi = median_ms(fn)
         print(f"[{label}] {name}: median {m:.4f} ms (min {lo:.4f}, "
               f"max {hi:.4f})", flush=True)
 
@@ -193,5 +412,8 @@ if __name__ == "__main__":
         sys.exit(check())
     if sys.argv[1:2] == ["times"] and len(sys.argv) == 4:
         times(sys.argv[2], sys.argv[3])
+        sys.exit(0)
+    if sys.argv[1:2] == ["variant"] and len(sys.argv) == 4:
+        variant(sys.argv[2], sys.argv[3])
         sys.exit(0)
     sys.exit(__doc__)
