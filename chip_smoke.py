@@ -17,10 +17,13 @@ of them pass:
             the main paths' shapes, and against the host golden on the
             small shapes (kernel A either side of its 32-tap short-tap
             crossover, at widths around its 16-byte chunks and row counts
-            that fill no whole CTA); for the 2-D kernels E, F and G (the plain
+            that fill no whole CTA; kernel C at 258-4,096 taps over widths
+            1-40,000 around its 512-column warp item, odd ones starting rows
+            misaligned); for the 2-D kernels E, F and G (the plain
             versions run on the card too) the bank and random filters up
-            to 33 × 257 over widths 1-4,099, whole frames compared (kernel
-            G within 1 where its f32 sums can round).
+            to 33 × 257, F's Lc 86-97 among them, over widths 1-4,099,
+            whole frames compared (kernel G within 1 where its f32 sums can
+            round).
 4. main     the port's CLI (``--backend auto --device cuda``) over a
             synthetic corpus at the reference corpus's size (seven images,
             67,975,252 samples per tap group); every fixed output against
@@ -50,8 +53,9 @@ of them pass:
 9. times    CUDA-event medians (per call, over windows of back-to-back
             calls) at 19,456 × 8,192 uint8, Q4.12: kernels A and B and the
             plain direct path at 5 taps; kernel A at 3-257 taps and on the
-            5-tap stream's window rows; kernels C and B at 1,001 and
-            4,096 taps, the plain path over single calls; kernel D and its
+            5-tap stream's window rows; kernels C and B at 258, 1,001,
+            2,048 and 4,096 taps, the plain path over single calls, and
+            kernel C on a 1,001-tap stream block; kernel D and its
             plain version at the stream's geometry; the 5-tap stream's
             per-block split into kernel D, the FIR and the checksums; at
             8192² kernels E, F and G, their plain versions,
@@ -284,7 +288,9 @@ TIMING_REPS = 7      # timed windows per path; the median is reported
 TIMING_LAUNCHES = 10  # back-to-back calls per window
 #: Kernel C's grid over K3's tap range, 258-4,096.
 WINDOW_TAPS = (258, 300, 511, 1001, 2048, 4096)
-WINDOW_WIDTHS = (1, 64, 127, 1500, 4499, 40000)
+#: Kernel C's widths: odd ones start rows misaligned; 511-513 around the
+#: 512-column warp item.
+WINDOW_WIDTHS = (1, 17, 64, 127, 511, 512, 513, 1500, 4499, 40000)
 #: Kernel D's geometries (channels, T, sub, g_windows, taps of the carry):
 #: T == sub, the L = 1 and L = 129 delay lines, and the stream's own.
 COPY_GEOMETRIES = ((4, 512, 512, 1, 5), (4, 16384, 512, 16, 1),
@@ -298,7 +304,7 @@ STREAM_BLOCKS = 252
 #: The long-tap stream: a 1,001-tap Hamming low-pass, cutoff 0.2.
 LONG_TAPS = 1001
 LONG_BLOCKS = 16
-LONG_TIMING_TAPS = (1001, 4096)
+LONG_TIMING_TAPS = (258, 1001, 2048, 4096)
 LONG_TIMING_REPS = 5
 LONG_TIMING_LAUNCHES = 2
 PLAIN_LONG_CALLS = 3
@@ -306,10 +312,12 @@ PLAIN_LONG_CALLS = 3
 STEP_BLOCKS = 60
 STEP_SKIP = 10
 MASK32 = 0xFFFFFFFF
-#: Kernels E, F and G's grid: random filters (F's widest, E just past it,
-#: E's widest and tallest) beside the bank, Q4.12 with a 32- and an 18-bit
+#: Kernels E, F and G's grid: random filters (F's Lc 86-97, where its
+#: stride falls below left + center, and its widest; E just past it, E's
+#: widest and tallest) beside the bank, Q4.12 with a 32- and an 18-bit
 #: accumulator, widths around a tile, 70 rows over 16-row blocks.
-GRID_2D_SHAPES = ((2, 4), (9, 3), (5, 97), (3, 98), (33, 257))
+GRID_2D_SHAPES = ((2, 4), (9, 3), (3, 86), (2, 87), (17, 91), (5, 97),
+                  (3, 98), (33, 257))
 GRID_2D_FORMATS = ((16, 12, 32), (16, 12, 18))
 GRID_2D_WIDTHS = (1, 127, 128, 700, 4099)
 GRID_2D_HEIGHT = 70
@@ -1139,7 +1147,8 @@ def median_ms(runs: dict, reps: int, calls: int) -> dict:
 
 
 def time_long_taps(card: str) -> dict:
-    """Kernels C and B and the plain path at 1,001 and 4,096 taps."""
+    """Kernels C and B and the plain path at 258, 1,001, 2,048 and 4,096
+    taps, and kernel C on a 1,001-tap stream block."""
     qf = QFormat()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randint(0, 256, BENCH_SHAPE, dtype=torch.uint8, device="cuda",
@@ -2007,8 +2016,9 @@ def main() -> int:
     samples = BENCH_SHAPE[0] * BENCH_SHAPE[1]
     nnz_5 = int(np.count_nonzero(qf.quantize_coeffs(
         np.asarray(FILTER_BANKS[5]["sharpen"]))))
-    nnz_long = int(np.count_nonzero(qf.quantize_coeffs(
-        design_lowpass(LONG_TAPS, 0.2))))
+    nnz_taps = {taps: int(np.count_nonzero(qf.quantize_coeffs(
+        design_lowpass(taps, 0.2)))) for taps in LONG_TIMING_TAPS}
+    nnz_long = nnz_taps[LONG_TAPS]
     nnz_2d = int(np.count_nonzero(qf.quantize_coeffs(
         np.asarray(FILTER_BANK_2D["sharpen5"]))))
     frame_samples = FRAME_SIZE * FRAME_SIZE
@@ -2019,6 +2029,8 @@ def main() -> int:
         "fir_window": bound(2 * samples, 2 * nnz_long * samples, "int8"),
         "fir_window_block": bound(2 * block_samples,
                                   2 * nnz_long * block_samples, "int8"),
+        **{f"fir_window_{taps}": bound(2 * samples, 2 * nnz * samples, "int8")
+           for taps, nnz in nnz_taps.items()},
         "window_rows": bound(split["bytes"], 0, "int8"),
         **{kind: bound(2 * times_2d["frame_numel"][kind],
                        2 * nnz_2d * frame_samples,
@@ -2078,7 +2090,9 @@ def main() -> int:
          **{f"{key}_{taps}tap": long_taps[taps][name]
             for taps in LONG_TIMING_TAPS
             for key, name in (("ms", "fir_window"),
-                              ("plain_ms", "torch_direct"))}},
+                              ("plain_ms", "torch_direct"))},
+         **{f"bound_ms_{taps}tap": bounds[f"fir_window_{taps}"]["bound_ms"]
+            for taps in LONG_TIMING_TAPS}},
         {"name": "window_rows", "route": "cuda",
          "source": "warmup_fir_filter_tpu_torch/csrc/window_copy.cu",
          "replaces": "warmup_fir_filter_tpu/kernels/window_copy.py:47",

@@ -290,7 +290,7 @@ def test_source_digest_follows_sources(monkeypatch, tmp_path):
         "fir_band.cu", "fir_direct.cu", "fir_float.cu", "fir_window.cu",
         "osfilt.cu", "osfilt_stream.cu", "resample.cu", "window_copy.cu"]
     for header in ("wft_window.cuh", "wft_fir2d.cuh", "wft_chain.cuh",
-                   "wft_band.cuh", "wft_fft_rows.cuh"):
+                   "wft_band.cuh", "wft_fft_rows.cuh", "wft_band_mma.cuh"):
         first = _build.source_digest()
         (tmp_path / header).write_text("// changed\n")
         assert _build.source_digest() != first

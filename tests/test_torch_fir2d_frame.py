@@ -12,10 +12,12 @@ hold, at the JAX tests' own sizes (``tests/test_fir2d_mxu.py``, at most
 - each plain version's **whole output frame** against the JAX kernel's,
   run in interpret mode: pad rows, pad tiles, spill columns and every
   duplicated boundary lane included;
-- the kernels' per-thread cores (``csrc/wft_fir2d.cuh``, built with g++
-  and run over every CTA and thread in a host loop) against the plain
-  versions.  The CUDA kernels themselves are held to the plain versions on
-  the card by ``chip_smoke.py``.
+- the kernels' cores (``csrc/wft_fir2d.cuh``, built with g++) against
+  the plain versions: E's and G's over every CTA and thread in a host loop,
+  F's over every work item with a warp's 32 lanes as one unit and
+  ``mma.sync`` emulated from its PTX fragment layout
+  (``csrc/wft_band_mma.cuh``).  The CUDA kernels themselves are held to the
+  plain versions on the card by ``chip_smoke.py``.
 
 Tolerance: every integer frame is ``np.array_equal`` (tolerance 0).  Kernel
 G is too where ``bf16_2d_exact`` holds; elsewhere the bf16 taps cost
@@ -507,7 +509,7 @@ def test_module_buffers_move_with_the_module():
 
 
 # ---------------------------------------------------------------------------
-# The kernels' per-thread cores, built with g++
+# The kernels' cores, built with g++
 # ---------------------------------------------------------------------------
 
 _KERNEL_HARNESS = """
@@ -515,15 +517,65 @@ _KERNEL_HARNESS = """
 #include <vector>
 #include "wft_fir2d.cuh"
 using namespace wft;
-// fir2d_frame.cu's and fir2d_bf16.cu's kernel bodies, one CTA and one
+// fir2d_frame.cu's kernel F: every work item in turn, its chunks of planes
+// staged and multiplied by each warp (a warp's lanes as one unit), then
+// each warp's bytes into the item's tile and the tile written out three
+// ways.
+extern "C" void oframe_host(const uint8_t* x, uint8_t* y, long long hp,
+                            long long wp, const int8_t* digits,
+                            const int* table, int planes, int taps_r,
+                            int taps_c, int t0, int core_h, int core_w,
+                            uint32_t bias, int wrap, int frac_bits,
+                            int acc_bits, int vec) {
+  const Fir2dGeometry g{hp, wp, t0, core_h, core_w, taps_r, taps_c, 1};
+  const int center = taps_c / 2;
+  const int left = taps_c - 1 - center;
+  const long long items =
+      (hp + kOframeRows - 1) / kOframeRows * (wp / kLane);
+  std::vector<uint8_t> buf(kOframeBufBytes);
+  std::vector<uint8_t> tile(kOframeTileBytes);
+  std::vector<uint32_t> dc(kOframeMaxChunkPlanes * kOframePlaneWords);
+  std::vector<uint32_t> acc(kOframeWarps * kOframeNTiles * kLaneSlots * 4);
+  const auto warp_acc = [&](int w) {
+    return reinterpret_cast<uint32_t (*)[kLaneSlots][4]>(
+        &acc[w * kOframeNTiles * kLaneSlots * 4]);
+  };
+  // As the kernel: one chunk's copies built once, or each chunk's in turn.
+  const bool single = planes > 0 && oframe_chunk_end(table, planes, 0) == planes;
+  const auto build = [&](int p0, int p1) {
+    for (int i = 0; i < (p1 - p0) * kOframePlaneWords; ++i)
+      dc[i] = oframe_copy_word(digits, taps_c, p0 + i / kOframePlaneWords,
+                               i % kOframePlaneWords);
+  };
+  if (single) build(0, planes);
+  for (long long item = 0; item < items; ++item) {
+    const OframeItem it = oframe_item(g, item);
+    for (auto& a : acc) a = bias;
+    for (int p0 = 0; !it.zero && p0 < planes;) {
+      const int p1 = oframe_chunk_end(table, planes, p0);
+      const int k0 = table[kFir2dPlaneFields * p0];
+      oframe_stage(buf.data(), x, g, it.c, it.r0, k0, true, 0, 1);
+      if (!single) build(p0, p1);
+      for (int w = 0; w < kOframeWarps; ++w)
+        oframe_warp(buf.data(), dc.data(), single ? 0 : p0, table, p0, p1,
+                    k0, left, center, w, warp_acc(w));
+      p0 = p1;
+    }
+    for (int w = 0; w < kOframeWarps; ++w)
+      oframe_tile(g, it, w, warp_acc(w), wrap != 0, frac_bits, acc_bits,
+                  tile.data());
+    oframe_write(g, it, tile.data(), vec != 0, y, 0, 1);
+  }
+}
+// fir2d_frame.cu's kernel E and fir2d_bf16.cu's kernel G, one CTA and one
 // thread at a time; bf16 != 0 runs kernel G on f32 tap rows.
 extern "C" void fir2d_host(const uint8_t* x, uint8_t* y, long long hp,
                            long long wp, const void* coeffs, const int* table,
                            int planes, int taps_r, int taps_c, int t0,
                            int core_h, int core_w, uint32_t bias, int wrap,
-                           int frac_bits, int acc_bits, int overlap,
-                           int bf16) {
-  const Fir2dGeometry g{hp, wp, t0, core_h, core_w, taps_r, taps_c, overlap};
+                           int frac_bits, int acc_bits, int bf16) {
+  // Kernel E runs on the plain frame, kernel G on the overlapped one.
+  const Fir2dGeometry g{hp, wp, t0, core_h, core_w, taps_r, taps_c, bf16};
   const float scale = ldexpf(1.0f, -frac_bits);
   const int fields = bf16 ? 1 : kFir2dPlaneFields;
   std::vector<uint8_t> xs(kFir2dWinRows * kFir2dWinCols);
@@ -581,8 +633,10 @@ extern "C" void fir2d_host(const uint8_t* x, uint8_t* y, long long hp,
 @pytest.fixture(scope="module")
 def kernel_core(tmp_path_factory):
     """Kernels E, F and G's cores (``csrc/wft_fir2d.cuh``) built with g++;
-    ``run(kind, frame, fir, core)`` with kind plain (E), overlap (F) or bf16
-    (G).  The output starts as 0xAB, so an unwritten byte shows."""
+    ``run(kind, frame, fir, core, vec=True)`` with kind plain (E), overlap
+    (F) or bf16 (G); ``vec=False`` writes F's output byte by byte, as for an
+    output that is not 16-byte aligned.  The output starts as 0xAB, so an
+    unwritten byte shows."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
     work = tmp_path_factory.mktemp("fir2d")
@@ -593,10 +647,12 @@ def kernel_core(tmp_path_factory):
     lib = ctypes.CDLL(str(work / "lib.so"))
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.fir2d_host.argtypes = [vp, vp, ll, ll, vp, vp, i, i, i, i, i, i,
-                               ctypes.c_uint32, i, i, i, i, i]
+                               ctypes.c_uint32, i, i, i, i]
+    lib.oframe_host.argtypes = [vp, vp, ll, ll, vp, vp, i, i, i, i, i, i,
+                                ctypes.c_uint32, i, i, i, i]
 
     def run(kind: str, frame: torch.Tensor, fir: fir2d.FixedFir2d,
-            core) -> np.ndarray:
+            core, vec: bool = True) -> np.ndarray:
         x = np.ascontiguousarray(frame.numpy())
         y = np.full_like(x, 0xAB)
         if kind == "bf16":
@@ -606,11 +662,14 @@ def kernel_core(tmp_path_factory):
         coeffs = np.ascontiguousarray(coeffs.numpy())
         table = np.ascontiguousarray(table.numpy())
         qf = fir.qformat
-        lib.fir2d_host(x.ctypes.data, y.ctypes.data, x.shape[0], x.shape[1],
-                       coeffs.ctypes.data, table.ctypes.data, count,
-                       *fir.taps, *core, fir.bias_value & 0xFFFFFFFF,
-                       int(fir.wrap), qf.frac_bits, qf.acc_bits,
-                       int(kind != "plain"), int(kind == "bf16"))
+        args = (x.ctypes.data, y.ctypes.data, x.shape[0], x.shape[1],
+                coeffs.ctypes.data, table.ctypes.data, count, *fir.taps,
+                *core, fir.bias_value & 0xFFFFFFFF, int(fir.wrap),
+                qf.frac_bits, qf.acc_bits)
+        if kind == "overlap":
+            lib.oframe_host(*args, int(vec))
+        else:
+            lib.fir2d_host(*args, int(kind == "bf16"))
         return y
 
     return run
@@ -692,3 +751,62 @@ def test_kernel_core_bf16(kernel_core, rng):
                                       QFormat(16, 12, 32))
     got, want = _core_vs_plain(kernel_core, "bf16", x, fir)
     assert np.abs(got.astype(np.int16) - want).max() <= 1
+
+
+OFRAME_LC = [2, 3, 5, 33, 85, 86, 87, 97]
+OFRAME_LR = [1, 2, 5, 17, 33]
+OFRAME_FORMATS = [QFormat(), QFormat(acc_bits=18), QFormat(16, 12, 20),
+                  QFormat(32, 24, 32)]
+
+
+@pytest.mark.parametrize("taps_r", OFRAME_LR)
+@pytest.mark.parametrize("taps_c", OFRAME_LC)
+def test_oframe_core_grid(kernel_core, rng, taps_c, taps_r):
+    """Kernel F's core, whole frames: Lc from 2 to 97 (86-97, where the
+    stride is below left + center, among them) × Lr up to 33 (tap rows in
+    several staged chunks), the formats in turn (wrapping ones among them),
+    rows over two or more 32-row work items."""
+    qf = OFRAME_FORMATS[(OFRAME_LC.index(taps_c) + taps_r) % 4]
+    fir = fir2d.FixedFir2d.from_numpy(rng.uniform(-2, 2, (taps_r, taps_c)),
+                                      qf)
+    x = torch.from_numpy(rng.integers(0, 256, size=(37 + taps_r, 300),
+                                      dtype=np.uint8))
+    got, want = _core_vs_plain(kernel_core, "overlap", x, fir)
+    np.testing.assert_array_equal(got, want, err_msg=f"{fir.taps} {qf}")
+
+
+@pytest.mark.parametrize("taps_c", OFRAME_LC)
+def test_oframe_core_three_tiles(kernel_core, rng, taps_c):
+    """The narrowest frames with an image: one interior tile between the two
+    pad tiles, whose boundary lanes come from the pad tiles' items; and a
+    noise frame of that shape."""
+    fir = fir2d.FixedFir2d.from_numpy(rng.uniform(-1, 1, (3, taps_c)))
+    stride = LANE - (taps_c - 1)
+    for w_img in (1, stride):
+        x = torch.from_numpy(rng.integers(0, 256, size=(20, w_img),
+                                          dtype=np.uint8))
+        frame, geo = fir2d.pad_frame_overlap(x, *fir.taps, block_rows=16)
+        assert frame.shape[1] == 3 * LANE
+        for src in (frame, torch.from_numpy(rng.integers(
+                0, 256, size=frame.shape, dtype=np.uint8))):
+            want = fir2d.fir2d_oframe_plain(src, fir, geo[:3]).numpy()
+            for vec in (True, False):
+                np.testing.assert_array_equal(
+                    kernel_core("overlap", src, fir, geo[:3], vec), want)
+
+
+@pytest.mark.parametrize("taps_c", [5, 87, 97])
+def test_oframe_core_chained(kernel_core, rng, taps_c):
+    """Two applies through kernel F's core, the first's output frame fed
+    straight back in, equal two applies of the plain version (for Lc >= 87
+    that is the TPU's inexact chain, byte for byte)."""
+    h = rng.uniform(0.0, 1.0, (3, taps_c))
+    fir = fir2d.FixedFir2d.from_numpy(h / h.sum())
+    x = torch.from_numpy(rng.integers(0, 256, size=(30, 400), dtype=np.uint8))
+    frame, geo = fir2d.pad_frame_overlap(x, 3, taps_c, block_rows=16)
+    core = geo[:3]
+    once = kernel_core("overlap", frame, fir, core)
+    twice = kernel_core("overlap", torch.from_numpy(once), fir, core)
+    want = fir2d.fir2d_oframe_plain(fir2d.fir2d_oframe_plain(frame, fir, core),
+                                    fir, core)
+    np.testing.assert_array_equal(twice, want.numpy())

@@ -7,8 +7,10 @@ tests hold ``build_window_band_planes`` against
 windowed formulation in int64 matmuls) against
 ``fir1d_fixed_rows_mxu_window`` run in interpret mode and the golden, at
 the JAX tests' own sizes (``tests/test_fir_mxu_window.py:72-138``), and
-the kernel's per-thread core (``csrc/wft_window.cuh``, built with g++ and
-run over every CTA and thread in a host loop) against ``fir_window_plain``.
+the kernel's warp core (``csrc/wft_window.cuh``, built with g++ and run
+over every warp item, a warp's 32 lanes as one unit, with ``mma.sync``
+emulated from its PTX fragment layout in ``csrc/wft_band_mma.cuh``)
+against ``fir_window_plain``; the emulation alone against a numpy matmul.
 The CUDA kernel itself is held to ``fir_window_plain`` on the card by
 ``chip_smoke.py``.
 
@@ -253,28 +255,35 @@ _KERNEL_HARNESS = """
 #include <cstdint>
 #include <vector>
 #include "wft_window.cuh"
-// fir_window.cu's kernel body, one CTA and one thread at a time.
+// fir_window.cu's kernel body: the shifted digit copies, then every warp
+// item (one row's 512 columns), a warp's lanes as one unit.
 extern "C" void fir_window_host(const uint8_t* x, uint8_t* y, long long rows,
                                 long long n, const uint32_t* digits,
                                 int planes, int taps, const int* table,
                                 uint32_t bias, int wrap, int frac_bits,
                                 int acc_bits) {
-  const int row_words = wft::window_row_words(taps);
+  const wft::WindowLayout lay = wft::window_layout(table, planes);
   const int left = taps - 1 - taps / 2;
-  std::vector<uint32_t> xs(wft::kWindowRows * row_words);
-  uint8_t* xb = reinterpret_cast<uint8_t*>(xs.data());
-  for (long long col0 = 0; col0 < n; col0 += wft::kWindowCols) {
-    for (long long row0 = 0; row0 < rows; row0 += wft::kWindowRows) {
-      for (int r = 0; r < wft::kWindowRows; ++r)
-        for (int j = 0; j < 4 * row_words; ++j)
-          xb[r * 4 * row_words + j] =
-              wft::window_byte(x, rows, n, row0 + r, col0 - left + j);
-      for (int t = 0; t < wft::kWindowThreads; ++t)
-        wft::window_thread(xs.data(), row_words, t, digits, table, planes,
-                           bias, wrap != 0, frac_bits, acc_bits, y, row0,
-                           rows, n, col0);
+  std::vector<uint32_t> ds(lay.copy_words + 1);
+  for (int i = 0; i < lay.copy_words; ++i)
+    ds[i] = wft::window_copy_word(digits, lay, i);
+  std::vector<uint32_t> words(lay.buf_bytes / 4 + 1);
+  uint8_t* buf = reinterpret_cast<uint8_t*>(words.data());
+  for (long long r = 0; r < rows; ++r) {
+    for (long long col0 = 0; col0 < n; col0 += wft::kWindowCols) {
+      int off = 0;
+      for (int lane = 0; lane < wft::kWarp; ++lane)
+        off = wft::window_stage(buf, x, n, r, col0, left, lay, lane);
+      wft::window_warp(buf, off, ds.data(), lay, bias, wrap != 0, frac_bits,
+                       acc_bits, y, r, n, col0);
     }
   }
+}
+// One emulated mma.sync m16n8k32 over a warp's fragments (32 lanes each).
+extern "C" void mma_host(uint32_t* a, uint32_t* b, int32_t* d) {
+  wft::mma_s8(reinterpret_cast<int32_t (*)[4]>(d),
+              reinterpret_cast<uint32_t (*)[4]>(a),
+              reinterpret_cast<uint32_t (*)[2]>(b));
 }
 """
 
@@ -295,10 +304,14 @@ def kernel_core(tmp_path_factory):
         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
         ctypes.c_int]
+    lib.mma_host.argtypes = [ctypes.c_void_p] * 3
 
     def run(x: np.ndarray, fir: window.FixedFirWindow) -> np.ndarray:
-        x = np.ascontiguousarray(x)
-        y = np.empty_like(x)
+        """Kernel C's core on ``x`` (a C-contiguous array, possibly a view
+        at any byte offset: the row alignment follows its address); the
+        output starts as 0xAB, so an unwritten byte shows."""
+        assert x.flags.c_contiguous
+        y = np.full_like(x, 0xAB)
         words = np.ascontiguousarray(fir.kernel_digits.numpy())
         table = np.asarray(fir.plane_table, np.int32)
         qf = fir.qformat
@@ -309,12 +322,14 @@ def kernel_core(tmp_path_factory):
                             int(fir.wrap), qf.frac_bits, qf.acc_bits)
         return y
 
+    run.mma = lib.mma_host
     return run
 
 
 @pytest.mark.parametrize("qf", FORMATS + [QFormat(16, 12, 16)], ids=str)
 def test_kernel_core_matches_plain(kernel_core, rng, qf):
-    """Ragged widths and row counts around the 512 × 8 tile, 1-5 planes."""
+    """Ragged widths and row counts around the 512-column warp item, 1-5
+    planes."""
     for num_taps, rows, width in ((258, 3, 1), (259, 9, 513), (1001, 2, 1500),
                                   (4096, 1, 700), (5, 8, 64)):
         h = _taps(rng, qf, num_taps)
@@ -333,3 +348,99 @@ def test_kernel_core_trimmed_planes(kernel_core, rng):
         fir = window.FixedFirWindow.from_numpy(h)
         np.testing.assert_array_equal(kernel_core(x, fir),
                                       fir1d_fixed_golden_rows(x, h))
+
+
+def _fragments(a: np.ndarray, b: np.ndarray, d: np.ndarray):
+    """A warp's fragments of mma.sync.aligned.m16n8k32.row.col with s8
+    operands, from the PTX ISA's layout: lane 4g + t holds A rows g and
+    g + 8 at k 4t..4t+3 and 16+4t..16+4t+3, B column g at the same k, D
+    (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)."""
+    def word(v):
+        return int(np.ascontiguousarray(v, np.int8).view("<u4")[0])
+
+    fa = np.zeros((32, 4), np.uint32)
+    fb = np.zeros((32, 2), np.uint32)
+    fd = np.zeros((32, 4), np.int32)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for reg, (row, k) in enumerate(((g, 4 * t), (g + 8, 4 * t),
+                                        (g, 16 + 4 * t), (g + 8, 16 + 4 * t))):
+            fa[lane, reg] = word(a[row, k : k + 4])
+        fb[lane, 0] = word(b[4 * t : 4 * t + 4, g])
+        fb[lane, 1] = word(b[16 + 4 * t : 20 + 4 * t, g])
+        for j in range(4):
+            fd[lane, j] = d[g + 8 * (j >> 1), 2 * t + (j & 1)]
+    return fa, fb, fd
+
+
+@pytest.mark.parametrize("case", ["random", "extremes", "accumulate"])
+def test_mma_emulation_matches_matmul(kernel_core, rng, case):
+    """The host emulation of mma.sync m16n8k32 s8 (what the CPU tests run
+    in place of the tensor cores) against a numpy matmul, from fragments
+    packed here by the PTX layout."""
+    a = rng.integers(-128, 128, size=(16, 32)).astype(np.int8)
+    b = rng.integers(-128, 128, size=(32, 8)).astype(np.int8)
+    d = np.zeros((16, 8), np.int32)
+    if case == "extremes":
+        a[:8], b[:, :4] = -128, -128
+        a[8:], b[:, 4:] = 127, -128
+    elif case == "accumulate":
+        d = rng.integers(-2**30, 2**30, size=(16, 8)).astype(np.int32)
+    fa, fb, fd = _fragments(a, b, d)
+    kernel_core.mma(fa.ctypes.data, fb.ctypes.data, fd.ctypes.data)
+    want = d.astype(np.int64) + a.astype(np.int64) @ b.astype(np.int64)
+    got = np.zeros((16, 8), np.int64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for j in range(4):
+            got[g + 8 * (j >> 1), 2 * t + (j & 1)] = fd[lane, j]
+    np.testing.assert_array_equal(got, want)
+
+
+GRID_TAPS = [1, 5, 33, 257, 258, 1001, 2048, 4096]
+GRID_WIDTHS = [1, 17, 511, 512, 513, 4099]
+GRID_ROWS = [1, 15, 16, 17, 33]
+GRID_FORMATS = FORMATS + [QFormat(16, 12, 16)]
+
+
+@pytest.mark.parametrize("width", GRID_WIDTHS)
+@pytest.mark.parametrize("num_taps", GRID_TAPS)
+def test_kernel_core_grid(kernel_core, rng, num_taps, width):
+    """Every tap count at every width (odd widths start rows misaligned),
+    the row counts and Q-formats (wrapping ones among them) in turn; the
+    row count drops to 1 where taps × width × rows would pass 3·10^7."""
+    i, j = GRID_TAPS.index(num_taps), GRID_WIDTHS.index(width)
+    rows = GRID_ROWS[(i + j) % len(GRID_ROWS)]
+    if num_taps * width * rows > 3e7:
+        rows = 1
+    qf = GRID_FORMATS[(i + 2 * j) % len(GRID_FORMATS)]
+    fir = window.FixedFirWindow.from_numpy(_taps(rng, qf, num_taps), qf)
+    x = rng.integers(0, 256, size=(rows, width), dtype=np.uint8)
+    np.testing.assert_array_equal(
+        kernel_core(x, fir),
+        window.fir_window_plain(torch.from_numpy(x), fir).numpy(),
+        err_msg=f"L={num_taps} rows={rows} N={width} {qf}")
+
+
+def test_kernel_core_plane_past_32_bits(kernel_core, rng):
+    """Taps near 2^31 need a fifth digit plane at exponent 32, which leaves
+    nothing mod 2^32 and is skipped."""
+    h_fixed = np.array([2**31 - 1, -(2**31 - 1), 12345, 2**30 + 7] * 70)
+    fir = window.FixedFirWindow(h_fixed, QFormat(32, 12, 32))
+    assert max(fir.exponents) >= 32
+    x = rng.integers(0, 256, size=(3, 700), dtype=np.uint8)
+    np.testing.assert_array_equal(
+        kernel_core(x, fir),
+        window.fir_window_plain(torch.from_numpy(x), fir).numpy())
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 7, 15])
+def test_kernel_core_misaligned_input(kernel_core, rng, offset):
+    """Rows at every alignment: a view at a byte offset of an aligned
+    buffer; the staging copies whole 16-byte chunks only inside a row."""
+    big = rng.integers(0, 256, size=5 * 1001 + 16, dtype=np.uint8)
+    x = big[offset : offset + 5 * 1001].reshape(5, 1001)
+    fir = window.FixedFirWindow.from_numpy(design_lowpass(1001, 0.2))
+    np.testing.assert_array_equal(
+        kernel_core(x, fir),
+        window.fir_window_plain(torch.from_numpy(x.copy()), fir).numpy())

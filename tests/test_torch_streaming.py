@@ -52,7 +52,7 @@ def _stream_all(stream, x, block):
 def test_streaming_equals_offline(rng, tap, block):
     h = np.asarray(FILTER_BANKS[tap]["sharpen"])
     x = rng.integers(0, 256, size=(3, 100), dtype=np.uint8)
-    stream = Fir1DStream(h, channels=3)
+    stream = Fir1DStream(h, channels=3, device="cpu")
     emitted = _stream_all(stream, x, block)
     offline = fir1d_fixed_golden_rows(x, h)
     center = tap // 2
@@ -64,16 +64,16 @@ def test_checkpoint_resume_bit_exact(rng, tmp_path):
     h = np.asarray(FILTER_BANKS[5]["edge"])
     x = rng.integers(0, 256, size=(2, 240), dtype=np.uint8)
 
-    s1 = Fir1DStream(h, channels=2)
+    s1 = Fir1DStream(h, channels=2, device="cpu")
     full = np.concatenate(
         [s1.process(x[:, :120]), s1.process(x[:, 120:]), s1.flush()], axis=1
     )
 
-    s2 = Fir1DStream(h, channels=2)
+    s2 = Fir1DStream(h, channels=2, device="cpu")
     part1 = s2.process(x[:, :120])
     s2.state.save(tmp_path / "ckpt.npz")
 
-    s3 = Fir1DStream(h, channels=2)
+    s3 = Fir1DStream(h, channels=2, device="cpu")
     s3.state = FirStreamState.load(tmp_path / "ckpt.npz")
     part2 = np.concatenate([s3.process(x[:, 120:]), s3.flush()], axis=1)
 
@@ -84,7 +84,7 @@ def test_checkpoint_resume_bit_exact(rng, tmp_path):
 def test_reset_zeroes_delay_line(rng):
     h = np.asarray(FILTER_BANKS[3]["moving_avg"])
     x = rng.integers(0, 256, size=(1, 50), dtype=np.uint8)
-    stream = Fir1DStream(h, channels=1)
+    stream = Fir1DStream(h, channels=1, device="cpu")
     first = stream.process(x)
     stream.reset()
     second = stream.process(x)
@@ -93,7 +93,7 @@ def test_reset_zeroes_delay_line(rng):
 
 def test_single_tap_stream(rng):
     x = rng.integers(0, 256, size=(2, 40), dtype=np.uint8)
-    stream = Fir1DStream([1.0], channels=2)
+    stream = Fir1DStream([1.0], channels=2, device="cpu")
     np.testing.assert_array_equal(stream.process(x), x)
     assert stream.flush().shape == (2, 0)
 
@@ -102,24 +102,35 @@ def test_custom_qformat_stream(rng):
     qf = QFormat(acc_bits=16, frac_bits=8)
     h = np.array([7.5, -8.0, 7.5])
     x = rng.integers(0, 256, size=(2, 64), dtype=np.uint8)
-    stream = Fir1DStream(h, channels=2, qformat=qf)
+    stream = Fir1DStream(h, channels=2, qformat=qf, device="cpu")
     emitted = _stream_all(stream, x, 16)
     offline = fir1d_fixed_golden_rows(x, h, qf)
     np.testing.assert_array_equal(emitted[:, 1:65], offline)
 
 
 def test_wrong_channel_count_rejected():
-    stream = Fir1DStream([0.5], channels=2)
+    stream = Fir1DStream([0.5], channels=2, device="cpu")
     with pytest.raises(ValueError, match="channels"):
         stream.process(np.zeros((3, 8), np.uint8))
 
 
 def test_wide_accumulator_and_missing_cuda_rejected(monkeypatch):
     with pytest.raises(ValueError, match="acc_bits=40"):
-        Fir1DStream([0.5], channels=1, qformat=QFormat(acc_bits=40))
+        Fir1DStream([0.5], channels=1, qformat=QFormat(acc_bits=40),
+                    device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         Fir1DStream([0.5], channels=1, device="cuda")
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """With no ``device`` the stream runs on the card, as the JAX stream
+    runs on its accelerator: without CUDA it raises and names
+    ``device="cpu"``; nothing falls back to the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Fir1DStream(np.ones(5) / 5, 2)
+    assert Fir1DStream(np.ones(5) / 5, 2, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("tap", [1, 5, 300])
@@ -129,7 +140,8 @@ def test_process_matches_jax_process(rng, tap):
     than the delay line)."""
     h = rng.uniform(-0.2, 0.2, size=tap) if tap > 5 else \
         np.asarray(FILTER_BANKS[5]["sharpen"])[:tap]
-    port, ref = Fir1DStream(h, 3), jax_streaming.Fir1DStream(h, 3)
+    port = Fir1DStream(h, 3, device="cpu")
+    ref = jax_streaming.Fir1DStream(h, 3)
     for width in (250, 1):
         x = rng.integers(0, 256, size=(3, width), dtype=np.uint8)
         np.testing.assert_array_equal(port.process(x), ref.process(x))
@@ -151,10 +163,10 @@ def test_checkpoints_resume_across_packages(rng, tmp_path, saver):
 
     if saver == "jax":
         a = jax_streaming.Fir1DStream(h, 4)
-        b = Fir1DStream(h, 4)
+        b = Fir1DStream(h, 4, device="cpu")
         b_state_cls = FirStreamState
     else:
-        a = Fir1DStream(h, 4)
+        a = Fir1DStream(h, 4, device="cpu")
         b = jax_streaming.Fir1DStream(h, 4)
         b_state_cls = jax_streaming.FirStreamState
     part1 = a.process(x[:, :130])
@@ -195,11 +207,11 @@ def test_scan_matches_blockwise_process():
     channels, width, blocks = 4, 96, 5
     block_fn, _ = _hash_blocks(channels, width)
 
-    scanned = Fir1DStream(h, channels)
+    scanned = Fir1DStream(h, channels, device="cpu")
     sums = stream_scanned(scanned, block_fn, blocks)
     assert sums.shape == (blocks, 3) and sums.dtype == np.uint32
 
-    manual = Fir1DStream(h, channels)
+    manual = Fir1DStream(h, channels, device="cpu")
     for b in range(blocks):
         y = manual.process(block_fn(b).numpy())
         np.testing.assert_array_equal(sums[b].astype(np.uint64),
@@ -213,13 +225,13 @@ def test_scan_resume_from_checkpoint(tmp_path):
     channels, width, blocks = 2, 64, 6
     block_fn, _ = _hash_blocks(channels, width)
 
-    full = Fir1DStream(h, channels)
+    full = Fir1DStream(h, channels, device="cpu")
     sums_full = stream_scanned(full, block_fn, blocks)
 
-    a = Fir1DStream(h, channels)
+    a = Fir1DStream(h, channels, device="cpu")
     sums_a = stream_scanned(a, block_fn, 3)
     a.state.save(tmp_path / "ck.npz")
-    b = Fir1DStream(h, channels)
+    b = Fir1DStream(h, channels, device="cpu")
     b.state = FirStreamState.load(tmp_path / "ck.npz")
     sums_b = stream_scanned(b, block_fn, 3, start_block=3)
     np.testing.assert_array_equal(np.concatenate([sums_a, sums_b]), sums_full)
@@ -230,7 +242,8 @@ def test_scan_matches_jax_scan_on_hash_blocks():
     """Both packages' own generator and scan: equal checksums and state."""
     h = np.array([0.25, 1.0, -0.5, 0.125, 0.0625])
     port_fn, jax_fn = _hash_blocks(4, 96)
-    port, ref = Fir1DStream(h, 4), jax_streaming.Fir1DStream(h, 4)
+    port = Fir1DStream(h, 4, device="cpu")
+    ref = jax_streaming.Fir1DStream(h, 4)
     got = stream_scanned(port, port_fn, 5, start_block=2)
     want = np.asarray(jax_streaming.stream_scanned(ref, jax_fn, 5,
                                                    start_block=2))
@@ -244,7 +257,8 @@ def _both_scans(h, data, **kwargs):
     device-resident blocks."""
     blocks, channels, _ = data.shape
     dev = jnp.asarray(data)
-    port, ref = Fir1DStream(h, channels), jax_streaming.Fir1DStream(h, channels)
+    port = Fir1DStream(h, channels, device="cpu")
+    ref = jax_streaming.Fir1DStream(h, channels)
     got = stream_scanned(port, lambda b: torch.from_numpy(data[b]), blocks,
                          **kwargs)
     want = np.asarray(jax_streaming.stream_scanned(
@@ -330,7 +344,7 @@ def test_windowed_scan_checksum_equal(rng):
     assert pick_window_split(channels, width, 5) == (512, 16)
     data = torch.from_numpy(rng.integers(0, 256, size=(blocks, channels, width),
                                          dtype=np.uint8))
-    ref_stream = Fir1DStream(h, channels)
+    ref_stream = Fir1DStream(h, channels, device="cpu")
     ref = stream_scanned(ref_stream, lambda b: data[b], blocks, rows_split=1)
     calls = {"windows": 0, "band": 0}
     plain_windows, plain_band = window_copy.window_rows_plain, fir_band.fir_band_plain
@@ -343,7 +357,7 @@ def test_windowed_scan_checksum_equal(rng):
         calls["band"] += 1
         return plain_band(*args)
 
-    win_stream = Fir1DStream(h, channels)
+    win_stream = Fir1DStream(h, channels, device="cpu")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(window_copy, "window_rows_plain", windows_spy)
         mp.setattr(fir_band, "fir_band_plain", band_spy)
@@ -358,13 +372,14 @@ def test_windowed_mode_gates():
     assert pick_window_split(4, 1000, 5) is None
     assert pick_window_split(4, 16_384, 131) is None
     h = np.asarray(FILTER_BANKS[5]["sharpen"])
-    st = Fir1DStream(h, 4)
+    st = Fir1DStream(h, 4, device="cpu")
     zeros = lambda b: torch.zeros((4, 16_384), dtype=torch.uint8)  # noqa: E731
     with pytest.raises(ValueError, match="default emit"):
         stream_scanned(st, zeros, 1, rows_split="pallas",
                        emit_fn=lambda y: y[:, :1])
     with pytest.raises(ValueError, match="no windowed-scan geometry"):
-        stream_scanned(Fir1DStream(np.ones(131) / 131, 4), zeros, 1,
+        stream_scanned(Fir1DStream(np.ones(131) / 131, 4, device="cpu"),
+                       zeros, 1,
                        rows_split="pallas")
 
 
@@ -374,7 +389,8 @@ def test_row_split_is_not_ported(rng, rows_split):
     the default step, with the unsplit scan's checksums and carry."""
     data = torch.from_numpy(rng.integers(0, 256, size=(2, 2, 64),
                                          dtype=np.uint8))
-    ref, st = Fir1DStream([0.5, 0.5], 2), Fir1DStream([0.5, 0.5], 2)
+    ref = Fir1DStream([0.5, 0.5], 2, device="cpu")
+    st = Fir1DStream([0.5, 0.5], 2, device="cpu")
     want = stream_scanned(ref, lambda b: data[b], 2)
     got = stream_scanned(st, lambda b: data[b], 2, rows_split=rows_split)
     np.testing.assert_array_equal(got, want)
@@ -383,14 +399,14 @@ def test_row_split_is_not_ported(rng, rows_split):
 
 @pytest.mark.parametrize("rows_split", [0, -2, 1.5, True, "wide"])
 def test_scan_rejects_bad_rows_split(rows_split):
-    st = Fir1DStream([0.5, 0.5], 2)
+    st = Fir1DStream([0.5, 0.5], 2, device="cpu")
     with pytest.raises(ValueError, match="rows_split"):
         stream_scanned(st, lambda b: torch.zeros((2, 64), dtype=torch.uint8),
                        1, rows_split=rows_split)
 
 
 def test_scan_rejects_bad_blocks():
-    st = Fir1DStream([0.5, 0.5], 2)
+    st = Fir1DStream([0.5, 0.5], 2, device="cpu")
     with pytest.raises(TypeError, match="uint8"):
         stream_scanned(st, lambda b: torch.zeros((2, 64), dtype=torch.int32), 1)
     with pytest.raises(ValueError, match="channels"):
@@ -404,10 +420,10 @@ def test_custom_emit(rng):
     """A custom emit sees the (C, S) outputs of the unsplit step."""
     h = np.asarray(FILTER_BANKS[3]["sharpen"])
     data = rng.integers(0, 256, size=(3, 2, 50), dtype=np.uint8)
-    st = Fir1DStream(h, 2)
+    st = Fir1DStream(h, 2, device="cpu")
     got = stream_scanned(st, lambda b: torch.from_numpy(data[b]), 3,
                          emit_fn=lambda y: y[:, :4].to(torch.int64))
-    manual = Fir1DStream(h, 2)
+    manual = Fir1DStream(h, 2, device="cpu")
     want = np.stack([manual.process(data[b])[:, :4] for b in range(3)])
     np.testing.assert_array_equal(got, want)
 

@@ -7,15 +7,15 @@
 // nearest even on the host), the samples as floats without rebias, each row
 // gives one f32 sum per output, the rows are added in order and the float
 // epilogue floor(acc * 2^-fb + 0.5), clipped to [0, 255], replaces the
-// integer one; the boundary lanes and the masks are kernel F's
-// (wft_fir2d.cuh).  Every product is exact in f32, so where
+// integer one; the boundary lanes and the masks are K7's
+// (wft_fir2d.cuh::fir2d_lane).  Every product is exact in f32, so where
 // bf16_2d_exact() holds (all sums below 2^24) the output is bit-exact
 // against the golden; elsewhere the order of the sums, which differs from
 // the TPU's matrix unit and from the plain version's matmul, may move an
 // output by one.
 //
 // What differs from the TPU kernel, and what bounds it on an H100: as
-// kernel F, a thread owns one lane of 16 rows and walks each row's Lc taps
+// kernel E, a thread owns one lane of 16 rows and walks each row's Lc taps
 // over a window staged in shared memory, one f32 multiply-add and one
 // shared byte load per tap and output, bound by instruction issue; bf16
 // tensor cores (wgmma on the band) are the next step.

@@ -1,147 +1,275 @@
-// Per-thread cores of kernel C (fir_window.cu) and kernel D (window_copy.cu).
+// Warp cores of kernel C (fir_window.cu) and kernel D (window_copy.cu).
 //
 // Like wft_fixed.cuh, this header also compiles as plain C++: the CPU tests
-// build it with g++, run every CTA and thread of both kernels in a host loop
-// and hold the result against the plain PyTorch versions.  On the device
-// the two intrinsics below are __byte_perm and __dp4a; on the host they are
-// emulated bit for bit.
+// build it with g++, run kernel C's warp items with a warp's lanes as one
+// unit (wft_band_mma.cuh emulates mma.sync from its fragment layout) and
+// kernel D's chunks one by one, and hold the results against the plain
+// PyTorch versions.
 #pragma once
 
+#include <climits>
 #include <cstdint>
 
+#include "wft_band_mma.cuh"
 #include "wft_fixed.cuh"
 
 namespace wft {
 
-// Kernel C tile: each of kWindowThreads threads computes 4 adjacent output
-// columns of kWindowRows rows.
-constexpr int kWindowThreads = 128;
-constexpr int kWindowCols = 4 * kWindowThreads;
-constexpr int kWindowRows = 8;
+// Kernel C: a CTA of kWindowWarps warps, each working alone through its
+// items; an item is kWindowCols output columns of one row, kWindowTiles
+// m16 tiles of 16 eight-column sub-tiles each.
+constexpr int kWindowWarps = 8;
+constexpr int kWindowThreads = kWarp * kWindowWarps;
+constexpr int kWindowTiles = 4;
+constexpr int kWindowCols = 128 * kWindowTiles;
 constexpr int kWindowMaxPlanes = 5;   // signed base-256 digits of an int32
 constexpr int kWindowMaxTaps = 4096;  // fir_mxu.py MAX_TAPS_WINDOWED
 // Fields of one plane's entry in the plane table.
 constexpr int kPlaneExp = 0;     // accumulation shift
-constexpr int kPlaneQuad0 = 1;   // first window quad the plane reads
+constexpr int kPlaneQuad0 = 1;   // first quad of reversed digits the plane reads
 constexpr int kPlaneQuads = 2;   // quads in the plane's trimmed tap range
 constexpr int kPlaneOffset = 3;  // first digit word of the plane
 constexpr int kPlaneFields = 4;
+// A-fragment words of a warp held in registers, indexed by v mod
+// kWindowRing: chunk c of tile u reads v = 8u + 2c + {0, 1, 4, 5}, so
+// 8 kWindowTiles - 2 consecutive words are live, and each chunk loads two.
+constexpr int kWindowRing = 8 * kWindowTiles;
+// Chunks a fully unrolled block walks: one turn of the ring.
+constexpr int kWindowUnroll = kWindowRing / 2;
 
-// Bytes {y:x} selected by the nibbles of s (x = bytes 0-3, y = bytes 4-7).
-WFT_INLINE uint32_t byte_perm(uint32_t x, uint32_t y, uint32_t s) {
-#if defined(__CUDA_ARCH__)
-  return __byte_perm(x, y, s);
-#else
-  const uint64_t v = (static_cast<uint64_t>(y) << 32) | x;
-  uint32_t r = 0;
-  for (int k = 0; k < 4; ++k) {
-    const uint32_t sel = (s >> (4 * k)) & 7u;
-    r |= static_cast<uint32_t>((v >> (8 * sel)) & 0xffu) << (8 * k);
-  }
-  return r;
-#endif
-}
+struct WindowPlane {
+  int exp, a0, quads, offset;  // the plane table's fields
+  int chunks;  // k32 chunks an 8-column sub-tile walks (0: a zero plane)
+  int stride;  // words of one shifted copy of the digits, = 8 (mod 32)
+  int base;    // first shared word of the plane's four copies
+};
 
-// c + the dot product of the four signed bytes of a and b.
-WFT_INLINE int32_t dp4a(uint32_t a, uint32_t b, int32_t c) {
-#if defined(__CUDA_ARCH__)
-  return __dp4a(static_cast<int>(a), static_cast<int>(b), c);
-#else
-  for (int k = 0; k < 4; ++k) {
-    c += static_cast<int32_t>(static_cast<int8_t>(a >> (8 * k))) *
-         static_cast<int32_t>(static_cast<int8_t>(b >> (8 * k)));
-  }
-  return c;
-#endif
-}
+// What the kernel derives from the plane table: the planes, the shared
+// words of their shifted digit copies, and the window of an item, the
+// positions xs[j0, j1) where xs[j] is the sample at column col0 - left + j.
+struct WindowLayout {
+  int planes;
+  WindowPlane plane[kWindowMaxPlanes];
+  int copy_words;
+  int j0, j1;
+  int buf_bytes;  // one staging buffer, a multiple of 16
+};
 
-// Row words of kernel C's window: byte j of a row holds x~[col0 - left + j];
-// thread t's last read is word t + (taps + 3) / 4 (see window_thread).
-WFT_INLINE int window_row_words(int taps) {
-  return kWindowThreads + (taps + 3) / 4;
-}
-
-// The rebiased sample at column m of row `row`; outside the rows or the row
-// it is u8 0, i.e. x~ = -128, as the TPU kernels' zero pad gives.
-WFT_INLINE uint8_t window_byte(const uint8_t* x, long long rows, long long n,
-                               long long row, long long m) {
-  return (row < rows && m >= 0 && m < n)
-             ? static_cast<uint8_t>(x[row * n + m] ^ 0x80u)
-             : static_cast<uint8_t>(0x80u);
-}
-
-// Kernel C, one thread: outputs col0 + 4t + j (j < 4) of rows row0 ..
-// row0 + kWindowRows - 1.
-//
-// With the taps reversed (rd[q] = digit[taps - 1 - q]) the same-mode sum of
-// a plane is the correlation  s(i) = sum_q rd[q] * xs[i + q],  where
-// xs[j] = x~[col0 - left + j]: K3's window matmul against its Toeplitz band
-// A[j, i] = rd[j - i] (fir_mxu.py:691-751), without the band.  A plane
-// walks only its own nonzero tap range, in quads of 4 taps: word a of the
-// plane's digits holds rd[4a .. 4a+3], and output 4t + j meets bytes
-// 4(t+a) + j .. 4(t+a) + j + 3 of the row, i.e. words t+a and t+a+1 shifted
-// by j bytes (byte_perm), so each quad is one dp4a per output.
-//   xs      kWindowRows rows of row_words words (rebiased int8 bytes)
-//   ds      the planes' digit words
-//   planes  kPlaneFields ints per plane (kPlane* above)
-WFT_INLINE void window_thread(const uint32_t* xs, int row_words, int t,
-                              const uint32_t* ds, const int* planes,
-                              int num_planes, uint32_t bias, bool wrap,
-                              int frac_bits, int acc_bits, uint8_t* y,
-                              long long row0, long long rows, long long n,
-                              long long col0) {
-  uint32_t acc[kWindowRows][4];
-  WFT_UNROLL
-  for (int r = 0; r < kWindowRows; ++r) {
-    WFT_UNROLL
-    for (int j = 0; j < 4; ++j) acc[r][j] = bias;
-  }
-  for (int b = 0; b < num_planes; ++b) {
-    const int* plane = planes + kPlaneFields * b;
-    const int e = plane[kPlaneExp];
-    const int a0 = plane[kPlaneQuad0];
-    const int quads = plane[kPlaneQuads];
-    const uint32_t* d = ds + plane[kPlaneOffset];
-    int32_t s[kWindowRows][4];  // |s| <= 4096 * 128 * 128 = 2^26
-    uint32_t w0[kWindowRows];
-    WFT_UNROLL
-    for (int r = 0; r < kWindowRows; ++r) {
-      WFT_UNROLL
-      for (int j = 0; j < 4; ++j) s[r][j] = 0;
-      w0[r] = xs[r * row_words + t + a0];
+// Plane b reads its quads [a0, a0 + quads) of reversed digits, taps
+// q in [4 a0, 4 (a0 + quads)).  An 8-column sub-tile's k range starts at
+// 4 a0 - delta (delta <= 3 aligns the A words, see window_warp) and must
+// reach past q + 7, hence chunks = ceil((4 quads + 10) / 32).  Its B words
+// are w in [a0 - 2, a0 + 8 chunks), so a copy holds 8 chunks + 2 words,
+// padded to 8 (mod 32) words, which puts the four copies of a lane group's
+// loads in distinct shared-memory banks.
+WFT_INLINE WindowLayout window_layout(const int* table, int planes) {
+  WindowLayout lay;
+  lay.planes = planes;
+  lay.copy_words = 0;
+  int j0 = INT_MAX;
+  int j1 = INT_MIN;
+  for (int b = 0; b < planes; ++b) {
+    WindowPlane& pl = lay.plane[b];
+    const int* t = table + b * kPlaneFields;
+    pl.exp = t[kPlaneExp];
+    pl.a0 = t[kPlaneQuad0];
+    pl.quads = t[kPlaneQuads];
+    pl.offset = t[kPlaneOffset];
+    pl.chunks = pl.quads > 0 ? (4 * pl.quads + 10 + 31) / 32 : 0;
+    pl.stride = 0;
+    if (pl.chunks > 0) {
+      const int words = 8 * pl.chunks + 2;
+      pl.stride = words + ((8 - words % 32) + 32) % 32;
+      const int lo = 4 * pl.a0 - 4;
+      const int hi = 4 * pl.a0 + 32 * pl.chunks + kWindowCols - 8;
+      j0 = lo < j0 ? lo : j0;
+      j1 = hi > j1 ? hi : j1;
     }
-    for (int a = 0; a < quads; ++a) {
-      const uint32_t dw = d[a];
-      WFT_UNROLL
-      for (int r = 0; r < kWindowRows; ++r) {
-        const uint32_t w1 = xs[r * row_words + t + a0 + a + 1];
-        s[r][0] = dp4a(w0[r], dw, s[r][0]);
-        s[r][1] = dp4a(byte_perm(w0[r], w1, 0x4321u), dw, s[r][1]);
-        s[r][2] = dp4a(byte_perm(w0[r], w1, 0x5432u), dw, s[r][2]);
-        s[r][3] = dp4a(byte_perm(w0[r], w1, 0x6543u), dw, s[r][3]);
-        w0[r] = w1;
+    pl.base = lay.copy_words;
+    lay.copy_words += 4 * pl.stride;
+  }
+  if (j1 < j0) j0 = j1 = 0;  // no plane reads a sample
+  lay.j0 = j0;
+  lay.j1 = j1;
+  // xs[j] lands at byte off + j - j0 with off < 16.
+  lay.buf_bytes = j1 > j0 ? ((j1 - j0 + 30) >> 4) << 4 : 0;
+  return lay;
+}
+
+// Word i of the shared digit copies: copy sigma of plane b holds, as word
+// L, the reversed digits rd[4w - sigma .. 4w - sigma + 3] with
+// w = a0 - 2 + L (zero outside the plane's quads).
+WFT_INLINE uint32_t window_copy_word(const uint32_t* digits,
+                                     const WindowLayout& lay, int i) {
+  int b = 0;
+  while (b + 1 < lay.planes && i >= lay.plane[b + 1].base) ++b;
+  const WindowPlane& pl = lay.plane[b];
+  const int local = i - pl.base;
+  const int sigma = local / pl.stride;
+  const int w = pl.a0 - 2 + local % pl.stride;
+  const auto quad = [&](int a) {
+    return a >= pl.a0 && a < pl.a0 + pl.quads ? digits[pl.offset + a - pl.a0]
+                                               : 0u;
+  };
+  return band_copy_word(quad(w - 1), quad(w), sigma);
+}
+
+// Kernel C, one lane's share of staging an item's window into buf: the
+// row's aligned 16-byte chunks lane, lane + 32, ...  A chunk inside the row
+// copies whole and asynchronously; one outside it is zeroed (u8 0 rebiases
+// to -128, the TPU's zero pad); one the row's ends cut is copied byte by
+// byte.  Nothing outside the row is read.  xs[j] lands at byte
+// off + j - j0 of buf, off the address of xs[j0] mod 16, which this
+// returns: the row's chunks are aligned in buf as in device memory.
+WFT_INLINE int window_stage(uint8_t* buf, const uint8_t* x, long long n,
+                            long long r, long long col0, int left,
+                            const WindowLayout& lay, int lane) {
+  const long long first = col0 - left + lay.j0;  // row column of xs[j0]
+  const int off = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(x) + static_cast<uintptr_t>(r * n + first)) &
+      15u);
+  const long long m0 = first - off;  // row column of buf[0]
+  if (lay.j1 <= lay.j0) return off;
+  const int chunks = (off + lay.j1 - lay.j0 + 15) >> 4;
+  const uint8_t* row = x + r * n;
+  for (int k = lane; k < chunks; k += kWarp) {
+    const long long m = m0 + 16LL * k;
+    uint8_t* dst = buf + 16 * k;
+    if (m >= 0 && m + 16 <= n) {
+      copy16_async(dst, row + m);
+    } else if (m + 16 <= 0 || m >= n) {
+      zero16(dst);
+    } else {
+      for (int i = 0; i < 16; ++i) {
+        dst[i] = m + i >= 0 && m + i < n ? row[m + i] : 0;
       }
     }
-    // A shift of 32 or more leaves nothing mod 2^32 (and is UB in C++).
-    if (e < 32) {
+  }
+  return off;
+}
+
+// Kernel C, one warp item: outputs col0 + [0, kWindowCols) of row r from
+// the staged window buf.
+//
+// With the taps reversed (rd[q] = digit[taps - 1 - q]) the same-mode sum of
+// a plane is the correlation  s(i) = sum_q rd[q] xs[i + q]: K3's window
+// matmul against its Toeplitz band (fir_mxu.py:691-751).  Here M indexes
+// 8-column sub-tiles, so m16 tile u of the item is
+//     D[m, i] = sum_k A[m, k] B[k, i],  A[m, k] = xs[128u + 8m + k],
+//     B[k, i] = rd[k - i],
+// over k32 chunks from kb0 = 4 a0 - delta.  delta = off & 3 makes every A
+// word aligned in shared memory: A(m, 4t..) of chunk c is the word
+// R(v) = xs[kb0 + 8g + 4t + 16v] with v = 8u + 2c (+4 for row m + 8, +1
+// for k + 16), so a chunk of all four tiles needs two new words a lane,
+// kept in a ring of registers.  The B words come from the plane's shifted
+// digit copies (window_layout): B(4t.., g) of chunk c starts at rd byte
+// p = kb0 + 32c + 4t - g, word a0 + 8c + t - ((g + delta) >> 2) of copy
+// (g + delta) & 3.  Samples are rebiased (x ^ 0x80) as the words are read.
+// Each plane's s32 sums are exact (|s| <= 4096 * 128 * 128 = 2^26) and
+// fold into the uint32 accumulator mod 2^32 shifted by the plane's
+// exponent; a shift of 32 or more leaves nothing.
+WFT_INLINE void window_warp(const uint8_t* buf, int off, const uint32_t* ds,
+                            const WindowLayout& lay, uint32_t bias,
+                            bool wrap, int frac_bits, int acc_bits,
+                            uint8_t* y, long long r, long long n,
+                            long long col0) {
+  constexpr uint32_t kRebias = 0x80808080u;
+  const int delta = off & 3;
+  uint32_t acc[kWindowTiles][kLaneSlots][4];
+  WFT_LANES(l) {
+    WFT_UNROLL
+    for (int u = 0; u < kWindowTiles; ++u) {
       WFT_UNROLL
-      for (int r = 0; r < kWindowRows; ++r) {
+      for (int j = 0; j < 4; ++j) acc[u][WFT_SLOT(l)][j] = bias;
+    }
+  }
+  for (int b = 0; b < lay.planes; ++b) {
+    const WindowPlane& pl = lay.plane[b];
+    if (pl.chunks == 0 || pl.exp >= 32) continue;
+    int32_t s[kWindowTiles][kLaneSlots][4];
+    uint32_t ring[kLaneSlots][kWindowRing];
+    int a_at[kLaneSlots];
+    const uint32_t* bw[kLaneSlots];
+    WFT_LANES(l) {
+      const int i = WFT_SLOT(l);
+      const int g = l >> 2;
+      const int t = l & 3;
+      const int h = g + delta;
+      a_at[i] = off + 4 * pl.a0 - delta - lay.j0 + 8 * g + 4 * t;
+      bw[i] = ds + pl.base + (h & 3) * pl.stride + t - (h >> 2) + 2;
+      WFT_UNROLL
+      for (int u = 0; u < kWindowTiles; ++u) {
+        WFT_UNROLL
+        for (int j = 0; j < 4; ++j) s[u][i][j] = 0;
+      }
+      WFT_UNROLL
+      for (int v = 0; v < kWindowRing - 4; ++v) {
+        ring[i][v] = shared_word(buf, a_at[i] + 16 * v) ^ kRebias;
+      }
+    }
+    // Chunk c, cc = c mod kWindowUnroll: the ring slots stay compile-time
+    // constants in the unrolled loops below.
+    const auto chunk = [&](int cc, int c) {
+      constexpr int kNew = kWindowRing - 4;  // first word chunk 0 loads
+      uint32_t bf[kLaneSlots][2];
+      WFT_LANES(l) {
+        const int i = WFT_SLOT(l);
+        ring[i][(2 * cc + kNew) % kWindowRing] =
+            shared_word(buf, a_at[i] + 16 * (2 * c + kNew)) ^ kRebias;
+        ring[i][(2 * cc + kNew + 1) % kWindowRing] =
+            shared_word(buf, a_at[i] + 16 * (2 * c + kNew + 1)) ^ kRebias;
+        bf[i][0] = bw[i][8 * c];
+        bf[i][1] = bw[i][8 * c + 4];
+      }
+      WFT_UNROLL
+      for (int u = 0; u < kWindowTiles; ++u) {
+        uint32_t af[kLaneSlots][4];
+        WFT_LANES(l) {
+          const int i = WFT_SLOT(l);
+          af[i][0] = ring[i][(8 * u + 2 * cc) % kWindowRing];
+          af[i][1] = ring[i][(8 * u + 2 * cc + 4) % kWindowRing];
+          af[i][2] = ring[i][(8 * u + 2 * cc + 1) % kWindowRing];
+          af[i][3] = ring[i][(8 * u + 2 * cc + 5) % kWindowRing];
+        }
+        mma_s8(s[u], af, bf);
+      }
+    };
+    for (int c0 = 0; c0 < pl.chunks; c0 += kWindowUnroll) {
+      if (c0 + kWindowUnroll <= pl.chunks) {
+        WFT_UNROLL
+        for (int cc = 0; cc < kWindowUnroll; ++cc) chunk(cc, c0 + cc);
+      } else {
+        WFT_UNROLL
+        for (int cc = 0; cc < kWindowUnroll; ++cc) {
+          if (c0 + cc < pl.chunks) chunk(cc, c0 + cc);
+        }
+      }
+    }
+    WFT_LANES(l) {
+      WFT_UNROLL
+      for (int u = 0; u < kWindowTiles; ++u) {
         WFT_UNROLL
         for (int j = 0; j < 4; ++j) {
-          acc[r][j] += static_cast<uint32_t>(s[r][j]) << e;
+          acc[u][WFT_SLOT(l)][j] +=
+              static_cast<uint32_t>(s[u][WFT_SLOT(l)][j]) << pl.exp;
         }
       }
     }
   }
-  WFT_UNROLL
-  for (int r = 0; r < kWindowRows; ++r) {
-    const long long row = row0 + r;
-    if (row >= rows) break;
+  uint8_t* out = y + r * n;
+  WFT_LANES(l) {
+    const int g = l >> 2;
+    const int t = l & 3;
     WFT_UNROLL
-    for (int j = 0; j < 4; ++j) {
-      const long long col = col0 + 4 * t + j;
-      if (col < n) {
-        y[row * n + col] = fixed_epilogue(acc[r][j], wrap, frac_bits, acc_bits);
+    for (int u = 0; u < kWindowTiles; ++u) {
+      WFT_UNROLL
+      for (int j = 0; j < 4; ++j) {
+        const long long col =
+            col0 + 128 * u + 8 * (g + 8 * (j >> 1)) + 2 * t + (j & 1);
+        if (col < n) {
+          out[col] = fixed_epilogue(acc[u][WFT_SLOT(l)][j], wrap, frac_bits,
+                                    acc_bits);
+        }
       }
     }
   }

@@ -75,10 +75,15 @@ class FirStreamState:
 
 class Fir1DStream:
     """Block-streaming bit-exact fixed-point FIR over C channels on one
-    device (``set_taps``/``process``/``reset``/``flush``)."""
+    device (``set_taps``/``process``/``reset``/``flush``).
+
+    Runs on the card unless ``device="cpu"`` asks for the host: without
+    CUDA the default raises, as :func:`resolve_device` does; nothing falls
+    back to the CPU.
+    """
 
     def __init__(self, h, channels: int, qformat: QFormat = QFormat(),
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         if not qformat.tpu_native:
             raise ValueError(
                 f"acc_bits={qformat.acc_bits} > 32 is not representable in "

@@ -223,7 +223,8 @@ def resolve_device(device: str | torch.device) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device 'cuda' requested but torch.cuda.is_available() is "
-            "False; pass --device cpu to run the plain versions on the host."
+            "False; pass device=\"cpu\" (--device cpu on the command line) "
+            "to run the plain versions on the host."
         )
     return device
 

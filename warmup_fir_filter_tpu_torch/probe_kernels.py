@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
-"""Probe of kernels A (``fir_band``), K (``fft_rows``), L (``osfilt``) and
-M (``osfilt_stream``) on one GPU.
+"""Probe of kernels A (``fir_band``), C (``fir_window``), F
+(``fir2d_oframe``), K (``fft_rows``), L (``osfilt``) and M
+(``osfilt_stream``) on one GPU.
 
     python3 warmup_fir_filter_tpu_torch/probe_kernels.py check
-        ``nvcc -Xptxas -v`` on ``fir_band.cu``, ``fft_rows.cu``,
-        ``osfilt.cu`` and ``osfilt_stream.cu`` (registers, stack and spills
-        of each kernel, all four compiles started together), then kernel A
-        against its plain version over taps 1-257 x Q-formats x widths
-        1-40,000 and misaligned inputs (``torch.equal``), kernel K against
+        ``nvcc -Xptxas -v`` on ``fir_band.cu``, ``fir_window.cu``,
+        ``fir2d_frame.cu``, ``fft_rows.cu``, ``osfilt.cu`` and
+        ``osfilt_stream.cu`` (registers, stack and spills of each kernel,
+        and whether its SASS from ``cuobjdump -sass`` holds ``IMMA``, all
+        six compiles started together), then kernel A against its plain
+        version over taps 1-257 x Q-formats x widths 1-40,000 and
+        misaligned inputs (``torch.equal``), kernel C over taps 1-4,096 x
+        widths 1-4,099 x rows 1-33 x Q-formats and misaligned inputs,
+        kernel F over whole frames of Lc 2-97 x Lr 1-33 x formats and
+        noise frames (``torch.equal``), kernel K against
         its float64 plain version at every size 2-16,384 (SNR >= 120 dB,
         within 2e-4 of ``torch.fft``), kernel L at every nfft 2-16,384 and
         kernel M over its stream cases and window-plan edges against their
@@ -18,7 +24,10 @@ M (``osfilt_stream``) on one GPU.
         8,192 u8 for 3-257 taps and on the 5-tap stream's 4,000 x 16,256
         window rows, a ``copy_``, kernel K and ``torch.fft.fft`` at 8,192 x
         2,048, 1,024 x 16,384 and 65,536 x 256, kernel C (``fir_window``)
-        at 1,001 taps on a long-tap stream block (16 x 4,001,000 u8), and
+        at 258, 1,001, 2,048 and 4,096 taps at 19,456 x 8,192 and at 1,001
+        taps on a long-tap stream block (16 x 4,001,000 u8), kernels E, F
+        and G and a frame ``copy_`` at ``bench_2d.py``'s 8192² for sharpen5
+        and gauss5, and
         at BASELINE config 4 (16 x 10,000,000, 63 taps) kernel M (f32, and
         u8 in and out), kernel L over the stream framed at nfft 2,048,
         ``F.conv1d`` (TF32 off) and the ``torch.fft`` overlap-save, for the
@@ -49,13 +58,16 @@ STREAM_CASES = ((3, 2000, 63, 0), (2, 1111, 63, 31), (1, 700, 5, 0),
                 (2, 3000, 2, 0), (2, 3000, 129, 0), (2, 3000, 257, 0),
                 (2, 449, 63, 0), (2, 450, 63, 0), (2, 451, 63, 0),
                 (2, 3000, 63, 31), (2, 3000, 63, 62))
-PTXAS_SOURCES = ("fir_band.cu", "fft_rows.cu", "osfilt.cu", "osfilt_stream.cu")
+PTXAS_SOURCES = ("fir_band.cu", "fir_window.cu", "fir2d_frame.cu",
+                 "fft_rows.cu", "osfilt.cu", "osfilt_stream.cu")
+FFT_SOURCES = ("fft_rows.cu", "osfilt.cu", "osfilt_stream.cu")
 
 
 def ptxas(label: str, sources=PTXAS_SOURCES) -> int:
     """``nvcc -Xptxas -v`` on ``sources``, all started together: one line a
     source with each kernel instance's registers, and its stack and spill
-    bytes where they are not 0.  Returns the number of failed compiles."""
+    bytes where they are not 0, then the kernels whose SASS holds ``IMMA``
+    (``cuobjdump -sass``).  Returns the number of failed compiles."""
     import re
 
     from warmup_fir_filter_tpu_torch import _build
@@ -82,10 +94,24 @@ def ptxas(label: str, sources=PTXAS_SOURCES) -> int:
                     return f"{part}<{','.join(ints)}>"
         return mangled
 
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     failed = 0
     for src, proc in procs.items():
         _, err = proc.communicate()
-        (_build.DEFAULT_BUILD_DIR / f"ptxas_{src}.o").unlink(missing_ok=True)
+        obj = _build.DEFAULT_BUILD_DIR / f"ptxas_{src}.o"
+        imma = {}
+        if proc.returncode == 0 and os.path.exists(cuobjdump):
+            sass = subprocess.run([cuobjdump, "-sass", str(obj)],
+                                  capture_output=True, text=True).stdout
+            fn = None
+            for ln in sass.splitlines():
+                m = re.search(r"Function : (\w+)", ln)
+                if m:
+                    fn = kernel_name(m.group(1))
+                    imma[fn] = 0
+                elif fn and "IMMA" in ln:
+                    imma[fn] += 1
+        obj.unlink(missing_ok=True)
         name, rows = None, []
         for ln in err.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -101,6 +127,9 @@ def ptxas(label: str, sources=PTXAS_SOURCES) -> int:
                 rows.append(ln.strip())
         print(f"[{label}] ptxas {src} rc={proc.returncode}: " + " ".join(rows),
               flush=True)
+        print(f"[{label}] sass {src}: " + (" ".join(
+            f"{fn}:IMMA={count}" for fn, count in imma.items()) or
+            "cuobjdump not run"), flush=True)
         failed += proc.returncode != 0
     print(f"[{label}] ptxas {time.perf_counter() - t0:.1f} s", flush=True)
     return failed
@@ -189,6 +218,7 @@ def check() -> int:
                     print("A MISALIGNED MISMATCH", fmt, taps, off)
     torch.cuda.synchronize()
     print(f"[A] {count} comparisons, {fails} mismatches")
+    fails += check_window(rng) + check_oframe(rng)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = 200.0
@@ -273,6 +303,119 @@ def check() -> int:
     return 1 if fails or kf or fl or fm else 0
 
 
+def check_window(rng) -> int:
+    """Kernel C against ``fir_window_plain``: every tap count of the grid at
+    every width, the row counts in turn, four Q-formats, a plane with
+    exponent 32, the all-zero filter and inputs at byte offsets 1-15.
+    Returns the mismatches."""
+    import numpy as np
+    import torch
+
+    from warmup_fir_filter_tpu_torch.kernels.fir_window import (
+        FixedFirWindow, fir_window_plain)
+    from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
+
+    fails = count = 0
+
+    def one(x, fir, fir_cpu, label):
+        nonlocal fails, count
+        got = fir(x).cpu()
+        want = fir_window_plain(x.cpu(), fir_cpu)
+        count += 1
+        if not torch.equal(got, want):
+            fails += 1
+            print("C MISMATCH", label, int((got != want).sum()))
+
+    formats = ((16, 12, 32), (16, 12, 20), (8, 7, 16), (32, 12, 28))
+    for i, taps in enumerate((1, 5, 33, 257, 258, 1001, 2048, 4096)):
+        for j, n in enumerate((1, 17, 511, 512, 513, 4099)):
+            rows = (1, 15, 16, 17, 33)[(i + j) % 5]
+            qf = QFormat(*formats[(i + j) % 4])
+            span = min(qf.max_coeff_real, 8.0)
+            h = np.clip(rng.uniform(-span, span, taps),
+                        max(qf.min_coeff_real, -8), span)
+            fir = FixedFirWindow.from_numpy(h, qf, "cuda")
+            x = torch.from_numpy(rng.integers(0, 256, size=(rows, n),
+                                              dtype=np.uint8))
+            one(x.cuda(), fir, FixedFirWindow.from_numpy(h, qf),
+                f"L={taps} {rows}x{n} {qf}")
+    qf = QFormat(32, 12, 32)
+    h_fixed = np.array([2**31 - 1, -(2**31 - 1), 12345, 2**30 + 7] * 70)
+    for fir_cpu in (FixedFirWindow(h_fixed, qf),
+                    FixedFirWindow.from_numpy(np.zeros(300))):
+        fir = FixedFirWindow(fir_cpu.h_fixed.numpy(), fir_cpu.qformat, "cuda")
+        x = torch.from_numpy(rng.integers(0, 256, size=(3, 700),
+                                          dtype=np.uint8))
+        one(x.cuda(), fir, fir_cpu, f"planes {fir_cpu.exponents}")
+    buf = torch.from_numpy(rng.integers(0, 256, size=5 * 1001 + 16,
+                                        dtype=np.uint8)).cuda()
+    h = rng.uniform(-0.01, 0.01, 1001)
+    fir, fir_cpu = (FixedFirWindow.from_numpy(h, QFormat(), dev)
+                    for dev in ("cuda", "cpu"))
+    for off in (1, 2, 3, 7, 15):
+        one(buf[off:off + 5 * 1001].view(5, 1001), fir, fir_cpu,
+            f"offset {off}")
+    torch.cuda.synchronize()
+    print(f"[C] {count} comparisons, {fails} mismatches")
+    return fails
+
+
+def check_oframe(rng) -> int:
+    """Kernel F against ``fir2d_oframe_plain`` (on the card), whole output
+    frames: the bank on images, noise frames and frames at a byte offset
+    (staged and written byte by byte), Lc 2-97 x Lr 1-33 over four
+    formats, frames of three tiles.  Returns the mismatches."""
+    import numpy as np
+    import torch
+
+    from warmup_fir_filter_tpu_torch.kernels.fir2d import (
+        FixedFir2d, fir2d_oframe, fir2d_oframe_plain, pad_frame_overlap)
+    from warmup_fir_filter_tpu_torch.ops.fir2d import FILTER_BANK_2D
+    from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
+
+    fails = count = 0
+
+    def shifted(t, offset):
+        """A copy of ``t`` at a byte offset from an aligned allocation."""
+        buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+        view = buf[offset:offset + t.numel()].view(t.shape)
+        return view.copy_(t)
+
+    def one(h, qf, h_img, w_img, noise, label, offset=0):
+        nonlocal fails, count
+        fir = FixedFir2d.from_numpy(h, qf, "cuda")
+        x = torch.from_numpy(rng.integers(0, 256, size=(h_img, w_img),
+                                          dtype=np.uint8)).cuda()
+        frame, geo = pad_frame_overlap(x, *fir.taps, block_rows=16)
+        if noise:
+            frame = torch.randint_like(frame, 0, 256)
+        if offset:
+            frame = shifted(frame, offset)
+        got = fir2d_oframe(frame, fir, geo[:3], out=shifted(
+            torch.full_like(frame, 0xAB), offset))
+        want = fir2d_oframe_plain(frame, fir, geo[:3])
+        count += 1
+        if not torch.equal(got, want):
+            fails += 1
+            print("F MISMATCH", label, fir.taps, h_img, w_img, qf,
+                  int((got != want).sum()))
+
+    for name, h in FILTER_BANK_2D.items():
+        for noise in (False, True):
+            one(np.asarray(h), QFormat(), 70, 700, noise, name)
+        one(np.asarray(h), QFormat(), 70, 700, False, name + " offset 3", 3)
+    formats = ((16, 12, 32), (16, 12, 18), (16, 12, 20), (32, 24, 32))
+    for lc in (2, 3, 5, 33, 85, 86, 87, 90, 96, 97):
+        for k, lr in enumerate((1, 2, 5, 17, 33)):
+            qf = QFormat(*formats[(lc + k) % 4])
+            h = rng.uniform(-2, 2, (lr, lc))
+            one(h, qf, 37 + lr, 130 + 7 * lc, False, "grid")
+            one(h, qf, 20, 128 - (lc - 1), True, "three tiles")
+    torch.cuda.synchronize()
+    print(f"[F] {count} comparisons, {fails} mismatches")
+    return fails
+
+
 def times(tree: str, label: str) -> None:
     root = os.path.abspath(tree)
     sys.path.insert(0, root)
@@ -286,9 +429,13 @@ def times(tree: str, label: str) -> None:
         FilterSpectrum, _osfilt_segments, _stream_geometry, fft_rows, osfilt,
         osfilt_stream)
     from warmup_fir_filter_tpu_torch.kernels.fir_band import FixedFir1d
+    from warmup_fir_filter_tpu_torch.kernels.fir2d import (
+        FixedFir2d, fir2d_bf16, fir2d_frame, fir2d_oframe, pad_frame,
+        pad_frame_overlap)
     from warmup_fir_filter_tpu_torch.kernels.fir_window import FixedFirWindow
     from warmup_fir_filter_tpu_torch.models.filters import FILTER_BANKS
     from warmup_fir_filter_tpu_torch.ops.fftfilt import fir_overlap_save
+    from warmup_fir_filter_tpu_torch.ops.fir2d import FILTER_BANK_2D
     from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
     from warmup_fir_filter_tpu_torch.ops.resample import design_lowpass
 
@@ -334,6 +481,34 @@ def times(tree: str, label: str) -> None:
     fir_c = FixedFirWindow.from_numpy(design_lowpass(1001, 0.2), qf, "cuda")
     report({"C 1001 taps stream block 16x4001000": lambda: fir_c(block)})
     del block
+    x = torch.randint(0, 256, (19456, 8192), dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    runs = {}
+    for taps in (258, 1001, 2048, 4096):
+        fir = FixedFirWindow.from_numpy(design_lowpass(taps, 0.2), qf, "cuda")
+        runs[f"C {taps} taps 19456x8192"] = (lambda f=fir: f(x))
+    report(runs)
+    del x, runs
+
+    # bench_2d.py's 8192² frames: kernels E, F and G, and a frame copy.
+    image = torch.randint(0, 256, (8192, 8192), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+    runs = {}
+    for name in ("sharpen5", "gauss5"):
+        h = np.asarray(FILTER_BANK_2D[name])
+        fir2 = FixedFir2d.from_numpy(h, qf, "cuda")
+        for kernel in (fir2d_frame, fir2d_oframe, fir2d_bf16):
+            frame, geo = (pad_frame(image, 5) if kernel is fir2d_frame
+                          else pad_frame_overlap(image, 5, 5))
+            out = torch.empty_like(frame)
+            runs[f"{kernel.__name__} {name} {tuple(frame.shape)}"] = (
+                lambda k=kernel, f=frame, c=geo[:3], o=out, ff=fir2:
+                k(f, ff, c, out=o))
+    frame = pad_frame_overlap(image, 5, 5)[0]
+    copy_dst = torch.empty_like(frame)
+    runs[f"copy {tuple(frame.shape)} u8"] = lambda: copy_dst.copy_(frame)
+    report(runs)
+    del image, frame, copy_dst, runs
 
     # BASELINE config 4: 16 x 10,000,000 u8 (as f32 and as u8), 63 taps.
     x8 = torch.randint(0, 256, (16, 10_000_000), dtype=torch.uint8,
@@ -373,7 +548,7 @@ def variant(tree: str, label: str) -> None:
         osfilt_plain, osfilt_stream, osfilt_stream_plain)
     from warmup_fir_filter_tpu_torch.ops.resample import design_lowpass
 
-    ptxas(label, PTXAS_SOURCES[1:])
+    ptxas(label, FFT_SOURCES)
     t0 = time.perf_counter()
     _build.load_library()
     print(f"[{label}] build {time.perf_counter() - t0:.2f} s", flush=True)
