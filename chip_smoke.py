@@ -59,7 +59,9 @@ of them pass:
             plain version at the stream's geometry; the 5-tap stream's
             per-block split into kernel D, the FIR and the checksums; at
             8192² kernels E, F and G, their plain versions,
-            ``fir2d_fixed_torch`` and a frame ``copy_``.
+            ``fir2d_fixed_torch`` and a frame ``copy_``, and kernel E at
+            the 3 × 129 and 3 × 257 filters ``fir2d_fixed_auto`` sends it,
+            each first held equal to its plain version on that frame.
 10. chain   kernels H (float FIR), I (polyphase resampler) and J (fused
     kernels chain) against their plain versions, which run in float64 on
             the card: H and I over taps × rates × ragged widths and at the
@@ -333,6 +335,9 @@ FRAME_SEED = 20260819
 FRAME_STEPS = 5
 FRAME_TIMING_LAUNCHES = 10
 PLAIN_2D_CALLS = 2
+#: The column widths fir2d_fixed_auto sends to kernel E (98 <= Lc <= 257):
+#: config 3's 3 × 129 check and the widest band, 3 × 257, timed at 8192².
+E_TIMING_SHAPES = ((3, 129), (3, 257))
 #: Kernels H and I's grid: (taps, up, down) over ragged widths, u8 and f32
 #: rows for H.
 FLOAT_TAPS = (1, 2, 5, 63, 64, 129, 257)
@@ -356,7 +361,7 @@ PLAIN_CHAIN_CALLS = 2
 #: Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates):
 #: device memory bytes/s and operations/s by type, at the 700 W limit.
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"f32": 67e12, "int8": 1979e12}
+PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 KERNELS = ("fir_band", "fir_direct", "fir_window", "window_rows",
            "fir2d_frame", "fir2d_oframe", "fir2d_bf16", "fir_float",
            "resample", "chain_fused", "fft_rows", "osfilt", "osfilt_stream")
@@ -795,15 +800,39 @@ def run_frames(agree: dict) -> dict:
     return counts
 
 
-def time_2d(card: str) -> dict:
+def time_2d(card: str, agree: dict) -> dict:
     """Per-apply CUDA-event medians at bench_2d.py's 8192² for kernels E,
     F and G (windows of FRAME_TIMING_LAUNCHES back-to-back applies into a
     second frame), ``fir2d_fixed_torch`` on the image, the plain versions
-    and a ``copy_`` of the overlapped frame."""
+    and a ``copy_`` of the overlapped frame; then kernel E at
+    E_TIMING_SHAPES (random taps from CONFIG3_SEED), each held against its
+    plain version on that frame first."""
     x = torch.from_numpy(np.random.default_rng(FRAME_SEED).integers(
         0, 256, size=(FRAME_SIZE, FRAME_SIZE), dtype=np.uint8)).cuda()
     samples = FRAME_SIZE * FRAME_SIZE
     out = {}
+    runs = {}
+    for shape in E_TIMING_SHAPES:
+        label = f"{shape[0]}x{shape[1]}"
+        fir = FixedFir2d.from_numpy(random_taps_2d(
+            np.random.default_rng(CONFIG3_SEED), shape), QFormat(), "cuda")
+        check_2d(agree, "fir2d_frame", x, fir,
+                 f"fir2d_frame {label} {FRAME_SIZE}x{FRAME_SIZE}")
+        frame, core, _ = frame_of("fir2d_frame", x, shape)
+        dst = torch.empty_like(frame)
+        runs[label] = (lambda f=frame, c=core, d=dst, ff=fir:
+                       fir2d_frame(f, ff, c, out=d))
+        out.setdefault("nnz_e", {})[label] = int(
+            np.count_nonzero(fir.h_fixed.cpu().numpy()))
+        out.setdefault("frame_numel_e", {})[label] = frame.numel()
+    for label, (m, lo, hi) in median_ms(runs, TIMING_REPS,
+                                        FRAME_TIMING_LAUNCHES).items():
+        print(f"[chip_smoke] time 2-D {label} fir2d_frame: median {m:.4f} ms "
+              f"(min {lo:.4f}, max {hi:.4f}) {samples / m / 1e3:.1f} "
+              f"Msamples/s an apply [{FRAME_SIZE}x{FRAME_SIZE} u8, Q4.12; "
+              f"{card}]", flush=True)
+        out.setdefault("fir2d_frame_e", {})[label] = m
+    del runs
     for name in ("sharpen5", "gauss5"):
         h = np.asarray(FILTER_BANK_2D[name])
         fir = FixedFir2d.from_numpy(h, QFormat(), "cuda")
@@ -1973,7 +2002,7 @@ def main() -> int:
     sustained_ms = (STREAM_CHANNELS * STREAM_BLOCK
                     / stream_5tap["msamples_per_s"] / 1e3)
     split = time_stream_step(card, sustained_ms)
-    times_2d = time_2d(card)
+    times_2d = time_2d(card, agree)
 
     phase("10 chain kernels vs plain")
     cfg5 = ChainConfig()
@@ -2011,7 +2040,8 @@ def main() -> int:
 
     # Bounds of the timed calls, from this run's shapes and taps: each
     # input byte read once, each output byte written once; the integer
-    # kernels' multiply-adds at the int8 rate, counting nonzero taps only.
+    # kernels' multiply-adds at the int8 rate and kernel G's (bf16 taps by
+    # samples) at the bf16 rate, counting nonzero taps only.
     qf = QFormat()
     samples = BENCH_SHAPE[0] * BENCH_SHAPE[1]
     nnz_5 = int(np.count_nonzero(qf.quantize_coeffs(
@@ -2034,8 +2064,12 @@ def main() -> int:
         "window_rows": bound(split["bytes"], 0, "int8"),
         **{kind: bound(2 * times_2d["frame_numel"][kind],
                        2 * nnz_2d * frame_samples,
-                       "f32" if kind == "fir2d_bf16" else "int8")
+                       "bf16" if kind == "fir2d_bf16" else "int8")
            for kind in KERNELS_2D},
+        **{f"fir2d_frame_{label}": bound(
+            2 * times_2d["frame_numel_e"][label],
+            2 * nnz * frame_samples, "int8")
+           for label, nnz in times_2d["nnz_e"].items()},
         **{name: bound(*times_chain["work"][name], "f32")
            for name in ("fir_float", "resample", "chain_fused",
                         "chain_fused_bf16")},
@@ -2116,7 +2150,14 @@ def main() -> int:
             **bounded(kind), "library_ms": None,
             "torch_ms": times_2d["sharpen5"]["torch"],
             "copy_ms": times_2d["sharpen5"]["copy"],
-            "ms_gauss5": times_2d["gauss5"][kind]})
+            "ms_gauss5": times_2d["gauss5"][kind],
+            **({f"{key}_{label}": value
+                for label, ms in times_2d["fir2d_frame_e"].items()
+                for key, value in (
+                    ("ms", ms), ("bound_ms",
+                                 bounds[f"fir2d_frame_{label}"]["bound_ms"]),
+                    ("bound_by", bounds[f"fir2d_frame_{label}"]["bound_by"]))}
+               if kind == "fir2d_frame" else {})})
     for name, source, replaces, plain, library in (
             ("fir_float", "fir_float.cu", "fir_float_mxu.py:106",
              "fir_float_plain", "conv1d"),

@@ -13,11 +13,13 @@ hold, at the JAX tests' own sizes (``tests/test_fir2d_mxu.py``, at most
   run in interpret mode: pad rows, pad tiles, spill columns and every
   duplicated boundary lane included;
 - the kernels' cores (``csrc/wft_fir2d.cuh``, built with g++) against
-  the plain versions: E's and G's over every CTA and thread in a host loop,
-  F's over every work item with a warp's 32 lanes as one unit and
-  ``mma.sync`` emulated from its PTX fragment layout
-  (``csrc/wft_band_mma.cuh``).  The CUDA kernels themselves are held to the
-  plain versions on the card by ``chip_smoke.py``.
+  the plain versions, every work item with a warp's 32 lanes as one unit
+  and ``mma.sync`` (int8 for E and F, bf16 for G) emulated from its PTX
+  fragment layout (``csrc/wft_band_mma.cuh``; the bf16 emulation itself
+  against a numpy matmul).  The CUDA kernels themselves are held to the
+  plain versions on the card by ``chip_smoke.py``;
+- a host array given to the image entries goes to the card, as the JAX
+  functions put it on their accelerator.
 
 Tolerance: every integer frame is ``np.array_equal`` (tolerance 0).  Kernel
 G is too where ``bf16_2d_exact`` holds; elsewhere the bf16 taps cost
@@ -38,7 +40,7 @@ from warmup_fir_filter_tpu.kernels import fir2d_mxu
 from warmup_fir_filter_tpu.ops.fftfilt import snr_db
 from warmup_fir_filter_tpu.ops.fir2d import FILTER_BANK_2D, fir2d_fixed_golden
 from warmup_fir_filter_tpu_torch import _build
-from warmup_fir_filter_tpu_torch.kernels import fir2d
+from warmup_fir_filter_tpu_torch.kernels import dispatch, fir2d
 from warmup_fir_filter_tpu_torch.kernels.fir_band import band_planes_of
 from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
@@ -475,6 +477,29 @@ def test_wrappers_on_cpu_run_the_plain_versions(rng):
     assert _launch_counts() == before
 
 
+def test_host_array_goes_to_the_card(rng, monkeypatch):
+    """A numpy image goes to the card, as the JAX entries put it on their
+    accelerator: without CUDA the image entries raise and name
+    ``device="cpu"``; a CPU tensor runs the plain versions."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = rng.integers(0, 256, size=(12, 40), dtype=np.uint8)
+    h = FILTER_BANK_2D["gauss5"]
+    for entry in (lambda: fir2d.pad_frame(x, 5),
+                  lambda: fir2d.pad_frame_overlap(x, 5, 5),
+                  lambda: fir2d.fir2d_fixed_mxu(x, h),
+                  lambda: fir2d.fir2d_fixed_mxu(x, h, layout="plain"),
+                  lambda: dispatch.fir2d_fixed_auto(x, h),
+                  lambda: dispatch.fir2d_fixed_auto(x, np.ones((3, 258)) / 774)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            entry()
+    before = _launch_counts()
+    got = dispatch.fir2d_fixed_auto(torch.from_numpy(x), h)
+    assert got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), fir2d_fixed_golden(x, h))
+    assert fir2d.pad_frame(torch.from_numpy(x), 5)[0].device.type == "cpu"
+    assert _launch_counts() == before
+
+
 def test_wrappers_reject_bad_inputs(rng):
     fir = fir2d.FixedFir2d.from_numpy(FILTER_BANK_2D["gauss5"])
     frame, geo = fir2d.pad_frame_overlap(
@@ -517,35 +542,42 @@ _KERNEL_HARNESS = """
 #include <vector>
 #include "wft_fir2d.cuh"
 using namespace wft;
-// fir2d_frame.cu's kernel F: every work item in turn, its chunks of planes
-// staged and multiplied by each warp (a warp's lanes as one unit), then
-// each warp's bytes into the item's tile and the tile written out three
-// ways.
-extern "C" void oframe_host(const uint8_t* x, uint8_t* y, long long hp,
-                            long long wp, const int8_t* digits,
-                            const int* table, int planes, int taps_r,
-                            int taps_c, int t0, int core_h, int core_w,
-                            uint32_t bias, int wrap, int frac_bits,
-                            int acc_bits, int vec) {
-  const Fir2dGeometry g{hp, wp, t0, core_h, core_w, taps_r, taps_c, 1};
+// fir2d_frame.cu's kernel E (plain != 0) or F: every work item in turn, its
+// chunks of planes staged and multiplied by each warp (a warp's lanes as
+// one unit), then each warp's bytes into the item's tile and the tile
+// written out (F's three ways).
+extern "C" void frame_host(const uint8_t* x, uint8_t* y, long long hp,
+                           long long wp, const int8_t* digits,
+                           const int* table, int planes, int taps_r,
+                           int taps_c, int t0, int core_h, int core_w,
+                           uint32_t bias, int wrap, int frac_bits,
+                           int acc_bits, int vec, int plain) {
+  const Fir2dGeometry g{hp, wp, t0, core_h, core_w, taps_r, taps_c};
   const int center = taps_c / 2;
   const int left = taps_c - 1 - center;
+  const EframeShape es = eframe_shape(taps_c);
+  const int copy_words = plain ? es.copy_words : kOframeCopyWords;
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const long long items =
       (hp + kOframeRows - 1) / kOframeRows * (wp / kLane);
-  std::vector<uint8_t> buf(kOframeBufBytes);
+  std::vector<uint8_t> buf(kOframeStageRows *
+                           (plain ? es.row_bytes : kOframeRowBytes));
   std::vector<uint8_t> tile(kOframeTileBytes);
-  std::vector<uint32_t> dc(kOframeMaxChunkPlanes * kOframePlaneWords);
+  std::vector<uint32_t> dc(kOframeMaxChunkPlanes * 4 * copy_words);
   std::vector<uint32_t> acc(kOframeWarps * kOframeNTiles * kLaneSlots * 4);
   const auto warp_acc = [&](int w) {
     return reinterpret_cast<uint32_t (*)[kLaneSlots][4]>(
         &acc[w * kOframeNTiles * kLaneSlots * 4]);
   };
+  const auto epi = [&](uint32_t a) {
+    return fixed_epilogue(a, wrap != 0, frac_bits, acc_bits);
+  };
   // As the kernel: one chunk's copies built once, or each chunk's in turn.
   const bool single = planes > 0 && oframe_chunk_end(table, planes, 0) == planes;
   const auto build = [&](int p0, int p1) {
-    for (int i = 0; i < (p1 - p0) * kOframePlaneWords; ++i)
-      dc[i] = oframe_copy_word(digits, taps_c, p0 + i / kOframePlaneWords,
-                               i % kOframePlaneWords);
+    for (int i = 0; i < (p1 - p0) * 4 * copy_words; ++i)
+      dc[i] = oframe_copy_word(digits, taps_c, p0 + i / (4 * copy_words),
+                               i % (4 * copy_words), copy_words);
   };
   if (single) build(0, planes);
   for (long long item = 0; item < items; ++item) {
@@ -554,78 +586,86 @@ extern "C" void oframe_host(const uint8_t* x, uint8_t* y, long long hp,
     for (int p0 = 0; !it.zero && p0 < planes;) {
       const int p1 = oframe_chunk_end(table, planes, p0);
       const int k0 = table[kFir2dPlaneFields * p0];
-      oframe_stage(buf.data(), x, g, it.c, it.r0, k0, true, 0, 1);
+      if (plain) {
+        eframe_stage(buf.data(), x, g, es, it.c, it.r0, k0, aligned, 0, 1);
+      } else {
+        oframe_stage(buf.data(), x, g, it.c, it.r0, k0, aligned, 0, 1);
+      }
       if (!single) build(p0, p1);
-      for (int w = 0; w < kOframeWarps; ++w)
-        oframe_warp(buf.data(), dc.data(), single ? 0 : p0, table, p0, p1,
-                    k0, left, center, w, warp_acc(w));
+      for (int w = 0; w < kOframeWarps; ++w) {
+        if (plain) {
+          eframe_warp(buf.data(), es, dc.data(), single ? 0 : p0, table, p0,
+                      p1, k0, taps_c, w, warp_acc(w));
+        } else {
+          oframe_warp(buf.data(), dc.data(), single ? 0 : p0, table, p0, p1,
+                      k0, left, center, w, warp_acc(w));
+        }
+      }
       p0 = p1;
     }
     for (int w = 0; w < kOframeWarps; ++w)
-      oframe_tile(g, it, w, warp_acc(w), wrap != 0, frac_bits, acc_bits,
-                  tile.data());
+      oframe_tile(g, it, w, warp_acc(w), epi, tile.data());
+    if (plain) {
+      eframe_write(g, it, tile.data(), vec != 0, y, 0, 1);
+    } else {
+      oframe_write(g, it, tile.data(), vec != 0, y, 0, 1);
+    }
+  }
+}
+// fir2d_bf16.cu's kernel G: every work item in turn, each chunk's rows
+// staged, widened to bf16 and multiplied row by row by each warp, then the
+// tile written out three ways.
+extern "C" void bf16_host(const uint8_t* x, uint8_t* y, long long hp,
+                          long long wp, const float* w, const int* table,
+                          int rows, int taps_r, int taps_c, int t0,
+                          int core_h, int core_w, int frac_bits, int vec) {
+  const Fir2dGeometry g{hp, wp, t0, core_h, core_w, taps_r, taps_c};
+  const int center = taps_c / 2;
+  const int left = taps_c - 1 - center;
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const float scale = ldexpf(1.0f, -frac_bits);
+  const long long items =
+      (hp + kOframeRows - 1) / kOframeRows * (wp / kLane);
+  std::vector<uint8_t> raw(kOframeBufBytes);
+  std::vector<uint8_t> wide(kBf16BufBytes);
+  std::vector<uint8_t> tile(kOframeTileBytes);
+  std::vector<uint32_t> wc(kOframeChunk * kBf16RowWords);
+  std::vector<float> acc(kOframeWarps * kOframeNTiles * kLaneSlots * 4);
+  const auto warp_acc = [&](int v) {
+    return reinterpret_cast<float (*)[kLaneSlots][4]>(
+        &acc[v * kOframeNTiles * kLaneSlots * 4]);
+  };
+  const auto epi = [&](float a) { return bf16_epilogue(a, scale); };
+  const bool single = rows > 0 && oframe_chunk_end<1>(table, rows, 0) == rows;
+  const auto build = [&](int p0, int p1) {
+    for (int i = 0; i < (p1 - p0) * kBf16RowWords; ++i)
+      wc[i] = bf16_copy_word(w, taps_c, p0 + i / kBf16RowWords,
+                             i % kBf16RowWords);
+  };
+  if (single) build(0, rows);
+  for (long long item = 0; item < items; ++item) {
+    const OframeItem it = oframe_item(g, item);
+    for (auto& a : acc) a = 0.0f;
+    for (int p0 = 0; !it.zero && p0 < rows;) {
+      const int p1 = oframe_chunk_end<1>(table, rows, p0);
+      oframe_stage(raw.data(), x, g, it.c, it.r0, table[p0], aligned, 0, 1);
+      bf16_widen(raw.data(), wide.data(), 0, 1);
+      if (!single) build(p0, p1);
+      for (int v = 0; v < kOframeWarps; ++v)
+        bf16_warp(wide.data(), wc.data(), single ? 0 : p0, table, p0, p1,
+                  table[p0], left, center, v, warp_acc(v));
+      p0 = p1;
+    }
+    for (int v = 0; v < kOframeWarps; ++v)
+      oframe_tile(g, it, v, warp_acc(v), epi, tile.data());
     oframe_write(g, it, tile.data(), vec != 0, y, 0, 1);
   }
 }
-// fir2d_frame.cu's kernel E and fir2d_bf16.cu's kernel G, one CTA and one
-// thread at a time; bf16 != 0 runs kernel G on f32 tap rows.
-extern "C" void fir2d_host(const uint8_t* x, uint8_t* y, long long hp,
-                           long long wp, const void* coeffs, const int* table,
-                           int planes, int taps_r, int taps_c, int t0,
-                           int core_h, int core_w, uint32_t bias, int wrap,
-                           int frac_bits, int acc_bits, int bf16) {
-  // Kernel E runs on the plain frame, kernel G on the overlapped one.
-  const Fir2dGeometry g{hp, wp, t0, core_h, core_w, taps_r, taps_c, bf16};
-  const float scale = ldexpf(1.0f, -frac_bits);
-  const int fields = bf16 ? 1 : kFir2dPlaneFields;
-  std::vector<uint8_t> xs(kFir2dWinRows * kFir2dWinCols);
-  std::vector<uint32_t> acc(kLane * kFir2dRows);
-  std::vector<float> facc(kLane * kFir2dRows);
-  std::vector<Fir2dLane> lanes(kLane);
-  for (long long c = 0; c < wp / kLane; ++c) {
-    for (long long r0 = 0; r0 < hp; r0 += kFir2dRows) {
-      if (fir2d_cta_is_zero(g, c, r0)) {
-        for (int i = 0; i < kLane; ++i) fir2d_store_zero(g, y, c, r0, i);
-        continue;
-      }
-      for (int i = 0; i < kLane; ++i) {
-        lanes[i] = fir2d_lane(g, c, i);
-        for (int r = 0; r < kFir2dRows; ++r) {
-          acc[i * kFir2dRows + r] = bias;
-          facc[i * kFir2dRows + r] = 0.0f;
-        }
-      }
-      for (int p = 0; p < planes;) {
-        const int k0 = table[fields * p];
-        for (int u = 0; u < kFir2dWinRows; ++u) {
-          const uint8_t* row = fir2d_window_row(x, g, c, r0, k0, u);
-          for (int v = 0; v < kFir2dWinCols; ++v)
-            xs[u * kFir2dWinCols + v] = row ? row[v] : 0;
-        }
-        int next = p;
-        for (int i = 0; i < kLane; ++i) {
-          next = bf16 ? fir2d_bf16_rows(xs.data(), lanes[i],
-                                        static_cast<const float*>(coeffs),
-                                        table, planes, p, k0, taps_c,
-                                        &facc[i * kFir2dRows])
-                      : fir2d_int_planes(xs.data(), lanes[i],
-                                         static_cast<const int8_t*>(coeffs),
-                                         table, planes, p, k0, taps_c,
-                                         &acc[i * kFir2dRows]);
-        }
-        p = next;
-      }
-      for (int i = 0; i < kLane; ++i) {
-        if (bf16) {
-          fir2d_bf16_store(g, lanes[i], &facc[i * kFir2dRows], scale, y, c,
-                           r0, i);
-        } else {
-          fir2d_int_store(g, lanes[i], &acc[i * kFir2dRows], wrap != 0,
-                          frac_bits, acc_bits, y, c, r0, i);
-        }
-      }
-    }
-  }
+// One emulated mma.sync m16n8k16 bf16 over a warp's fragments (32 lanes).
+extern "C" void mma_bf16_host(uint32_t* a, uint32_t* b, float* d) {
+  mma_bf16(reinterpret_cast<float (*)[4]>(d),
+           reinterpret_cast<uint32_t (*)[4]>(a),
+           reinterpret_cast<uint32_t (*)[2]>(b));
 }
 """
 
@@ -633,10 +673,13 @@ extern "C" void fir2d_host(const uint8_t* x, uint8_t* y, long long hp,
 @pytest.fixture(scope="module")
 def kernel_core(tmp_path_factory):
     """Kernels E, F and G's cores (``csrc/wft_fir2d.cuh``) built with g++;
-    ``run(kind, frame, fir, core, vec=True)`` with kind plain (E), overlap
-    (F) or bf16 (G); ``vec=False`` writes F's output byte by byte, as for an
-    output that is not 16-byte aligned.  The output starts as 0xAB, so an
-    unwritten byte shows."""
+    ``run(kind, frame, fir, core, vec=True, offset=0)`` with kind plain
+    (E), overlap (F) or bf16 (G).  The frame and the output lie ``offset``
+    bytes past a 16-byte boundary, so the staging takes the kernels' byte
+    path where that is not 0; ``vec=False`` or an offset writes the output
+    byte by byte, as for an output that is not 16-byte aligned.  The output
+    starts as 0xAB, so an unwritten byte shows.  ``run.mma_bf16`` is the
+    emulated bf16 MMA."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
     work = tmp_path_factory.mktemp("fir2d")
@@ -646,32 +689,44 @@ def kernel_core(tmp_path_factory):
                     str(work / "harness.cpp")], check=True, timeout=120)
     lib = ctypes.CDLL(str(work / "lib.so"))
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.fir2d_host.argtypes = [vp, vp, ll, ll, vp, vp, i, i, i, i, i, i,
-                               ctypes.c_uint32, i, i, i, i]
-    lib.oframe_host.argtypes = [vp, vp, ll, ll, vp, vp, i, i, i, i, i, i,
-                                ctypes.c_uint32, i, i, i, i]
+    lib.frame_host.argtypes = [vp, vp, ll, ll, vp, vp, i, i, i, i, i, i,
+                               ctypes.c_uint32, i, i, i, i, i]
+    lib.bf16_host.argtypes = [vp, vp, ll, ll, vp, vp, i, i, i, i, i, i, i, i]
+    lib.mma_bf16_host.argtypes = [vp] * 3
+
+    def at_offset(a: np.ndarray, offset: int) -> np.ndarray:
+        """A copy of ``a`` that starts ``offset`` bytes past a 16-byte
+        boundary."""
+        buf = np.empty(a.size + 32, np.uint8)
+        start = (-buf.ctypes.data) % 16 + offset
+        view = buf[start : start + a.size].reshape(a.shape)
+        view[...] = a
+        return view
 
     def run(kind: str, frame: torch.Tensor, fir: fir2d.FixedFir2d,
-            core, vec: bool = True) -> np.ndarray:
-        x = np.ascontiguousarray(frame.numpy())
-        y = np.full_like(x, 0xAB)
+            core, vec: bool = True, offset: int = 0) -> np.ndarray:
+        x = at_offset(frame.numpy(), offset)
+        y = at_offset(np.full(x.shape, 0xAB, np.uint8), offset)
+        vec = vec and offset == 0
+        geo = (x.ctypes.data, y.ctypes.data, x.shape[0], x.shape[1])
         if kind == "bf16":
-            coeffs, table, count = fir.bf16_rows, fir.bf16_table, len(fir.plan2)
-        else:
-            coeffs, table, count = fir.digits, fir.plane_table, len(fir.plan)
-        coeffs = np.ascontiguousarray(coeffs.numpy())
-        table = np.ascontiguousarray(table.numpy())
+            coeffs = np.ascontiguousarray(fir.bf16_rows.numpy())
+            table = np.ascontiguousarray(fir.bf16_table.numpy())
+            lib.bf16_host(*geo, coeffs.ctypes.data, table.ctypes.data,
+                          len(fir.plan2), *fir.taps, *core,
+                          fir.qformat.frac_bits, int(vec))
+            return y.copy()
+        coeffs = np.ascontiguousarray(fir.digits.numpy())
+        table = np.ascontiguousarray(fir.plane_table.numpy())
         qf = fir.qformat
-        args = (x.ctypes.data, y.ctypes.data, x.shape[0], x.shape[1],
-                coeffs.ctypes.data, table.ctypes.data, count, *fir.taps,
-                *core, fir.bias_value & 0xFFFFFFFF, int(fir.wrap),
-                qf.frac_bits, qf.acc_bits)
-        if kind == "overlap":
-            lib.oframe_host(*args, int(vec))
-        else:
-            lib.fir2d_host(*args, int(kind == "bf16"))
-        return y
+        lib.frame_host(*geo, coeffs.ctypes.data, table.ctypes.data,
+                       len(fir.plan), *fir.taps, *core,
+                       fir.bias_value & 0xFFFFFFFF, int(fir.wrap),
+                       qf.frac_bits, qf.acc_bits, int(vec),
+                       int(kind == "plain"))
+        return y.copy()
 
+    run.mma_bf16 = lib.mma_bf16_host
     return run
 
 
@@ -696,8 +751,8 @@ def _core_vs_plain(kernel_core, kind, x, fir, block_rows=16):
                          ids=str)
 @pytest.mark.parametrize("kind", ["plain", "overlap"])
 def test_kernel_core_matches_plain(kernel_core, rng, kind, qf):
-    """Even, tall (two and three 16-row chunks of tap rows) and wide
-    filters, ragged sizes around the 16-row × 128-lane CTA."""
+    """Even, tall (three and five 8-row chunks of tap rows) and wide
+    filters, ragged sizes around the 32-row × 128-lane work item."""
     shapes = [(5, 5), (2, 4), (9, 3), (1, 2), (17, 5), (40, 3), (3, 97)]
     if kind == "plain":
         shapes += [(1, 1), (3, 98), (5, 257)]
@@ -810,3 +865,145 @@ def test_oframe_core_chained(kernel_core, rng, taps_c):
     want = fir2d.fir2d_oframe_plain(fir2d.fir2d_oframe_plain(frame, fir, core),
                                     fir, core)
     np.testing.assert_array_equal(twice, want.numpy())
+
+
+def _bf16_fragments(a: np.ndarray, b: np.ndarray, d: np.ndarray):
+    """A warp's fragments of mma.sync.aligned.m16n8k16.row.col with bf16
+    operands, from the PTX ISA's layout: lane 4g + t holds A rows g and
+    g + 8 at k 2t, 2t+1 and 8+2t, 9+2t, B column g at the same k (the lower
+    k in the lower half of a word), D (g, 2t), (g, 2t+1), (g+8, 2t),
+    (g+8, 2t+1)."""
+    bits = (np.ascontiguousarray(a, ml_dtypes.bfloat16).view(np.uint16),
+            np.ascontiguousarray(b, ml_dtypes.bfloat16).view(np.uint16))
+
+    def word(v):
+        return int(v[0]) | int(v[1]) << 16
+
+    fa = np.zeros((32, 4), np.uint32)
+    fb = np.zeros((32, 2), np.uint32)
+    fd = np.zeros((32, 4), np.float32)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for reg, (row, k) in enumerate(((g, 2 * t), (g + 8, 2 * t),
+                                        (g, 8 + 2 * t), (g + 8, 8 + 2 * t))):
+            fa[lane, reg] = word(bits[0][row, k : k + 2])
+        fb[lane, 0] = word(bits[1][2 * t : 2 * t + 2, g])
+        fb[lane, 1] = word(bits[1][8 + 2 * t : 10 + 2 * t, g])
+        for j in range(4):
+            fd[lane, j] = d[g + 8 * (j >> 1), 2 * t + (j & 1)]
+    return fa, fb, fd
+
+
+@pytest.mark.parametrize("case", ["samples", "signed", "accumulate"])
+def test_mma_bf16_emulation_matches_matmul(kernel_core, rng, case):
+    """The host emulation of mma.sync m16n8k16 bf16 → f32 (what the CPU
+    tests run in place of kernel G's tensor cores) against a numpy matmul,
+    from fragments packed here by the PTX layout: u8 samples by bf16 taps,
+    signed bf16 values of every magnitude, and a nonzero accumulator.  The
+    float64 sum of each element is exact here, so the emulation's one
+    rounding to f32 gives it to the last bit."""
+    a = rng.integers(0, 256, size=(16, 16)).astype(np.float64)
+    b = (rng.integers(-255, 256, size=(16, 8)) * 256.0)
+    d = np.zeros((16, 8))
+    if case == "signed":
+        a = rng.integers(-128, 128, size=(16, 16)) * 2.0 ** rng.integers(
+            -8, 8, size=(16, 16))
+        b = rng.integers(-128, 128, size=(16, 8)) * 2.0 ** rng.integers(
+            -8, 8, size=(16, 8))
+    elif case == "accumulate":
+        d = rng.integers(-2**20, 2**20, size=(16, 8)).astype(np.float64)
+    fa, fb, fd = _bf16_fragments(a, b, d)
+    kernel_core.mma_bf16(fa.ctypes.data, fb.ctypes.data, fd.ctypes.data)
+    want = (d + a @ b).astype(np.float32)
+    got = np.zeros((16, 8), np.float32)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for j in range(4):
+            got[g + 8 * (j >> 1), 2 * t + (j & 1)] = fd[lane, j]
+    np.testing.assert_array_equal(got, want)
+
+
+EFRAME_LC = [2, 97, 98, 129, 200, 257]
+EFRAME_LR = [1, 2, 5, 17, 33]
+EFRAME_FORMATS = [QFormat(), QFormat(acc_bits=18), QFormat(acc_bits=20),
+                  QFormat(16, 12, 20), QFormat(32, 24, 32)]
+
+
+@pytest.mark.parametrize("taps_r", EFRAME_LR)
+@pytest.mark.parametrize("taps_c", EFRAME_LC)
+def test_eframe_core_grid(kernel_core, rng, taps_c, taps_r):
+    """Kernel E's core, whole frames: Lc from 2 to 257 (97/98 either side
+    of the overlapped frame's reach, 257 the widest band: 9 k32 chunks an
+    n8 tile) × Lr up to 33 (tap rows in up to five staged chunks), the
+    formats in turn (wrapping at acc_bits 18 and 20 among them), rows over
+    two or more 32-row items, three interior tiles."""
+    i, k = EFRAME_LC.index(taps_c), EFRAME_LR.index(taps_r)
+    qf = EFRAME_FORMATS[(i + k) % len(EFRAME_FORMATS)]
+    fir = fir2d.FixedFir2d.from_numpy(rng.uniform(-2, 2, (taps_r, taps_c)),
+                                      qf)
+    x = torch.from_numpy(rng.integers(0, 256, size=(37 + taps_r, 300),
+                                      dtype=np.uint8))
+    got, want = _core_vs_plain(kernel_core, "plain", x, fir)
+    np.testing.assert_array_equal(got, want, err_msg=f"{fir.taps} {qf}")
+
+
+@pytest.mark.parametrize("width", [1, 127, 128, 700, 4099])
+def test_eframe_core_widths(kernel_core, rng, width):
+    """Kernel E's core at config 3's 3 × 129 shape over widths that leave
+    the last tile's spill columns 127, 1, 0, 68 and 125 wide, and on a
+    noise frame of that width (pad rows and tiles nonzero)."""
+    fir = fir2d.FixedFir2d.from_numpy(rng.uniform(-1, 1, (3, 129)))
+    x = torch.from_numpy(rng.integers(0, 256, size=(20, width),
+                                      dtype=np.uint8))
+    got, want = _core_vs_plain(kernel_core, "plain", x, fir)
+    np.testing.assert_array_equal(got, want)
+    frame, geo = fir2d.pad_frame(x, 3, block_rows=16)
+    noise = torch.from_numpy(rng.integers(0, 256, size=frame.shape,
+                                          dtype=np.uint8))
+    np.testing.assert_array_equal(
+        kernel_core("plain", noise, fir, geo[:3]),
+        fir2d.fir2d_frame_plain(noise, fir, geo[:3]).numpy())
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8])
+@pytest.mark.parametrize("kind", ["plain", "bf16"])
+def test_core_at_byte_offsets(kernel_core, rng, kind, offset):
+    """Frames and outputs at a byte offset from a 16-byte boundary: staged
+    byte by byte and written byte by byte, as the kernels do for a frame
+    or a ``scratch`` that is not 16-byte aligned."""
+    taps = (3, 129) if kind == "plain" else (5, 5)
+    fir = fir2d.FixedFir2d.from_numpy(rng.uniform(-1, 1, taps) / taps[1])
+    x = torch.from_numpy(rng.integers(0, 256, size=(40, 300),
+                                      dtype=np.uint8))
+    frame, geo = (fir2d.pad_frame(x, taps[0], block_rows=16) if kind ==
+                  "plain" else fir2d.pad_frame_overlap(x, *taps,
+                                                       block_rows=16))
+    np.testing.assert_array_equal(
+        kernel_core(kind, frame, fir, geo[:3], offset=offset),
+        PLAIN[kind](frame, fir, geo[:3]).numpy())
+
+
+BF16_LC = [2, 3, 5, 33, 85, 86, 87, 97]
+BF16_LR = [1, 2, 5, 17]
+
+
+@pytest.mark.parametrize("taps_r", BF16_LR)
+@pytest.mark.parametrize("taps_c", BF16_LC)
+def test_bf16_core_grid(kernel_core, rng, taps_c, taps_r):
+    """Kernel G's core, whole frames: Lc from 2 to 97 × Lr up to 17 (tap
+    rows in up to three staged chunks), taps scaled so that every f32 sum
+    stays an exact integer (then any order of summation gives the same
+    frame) and, on the narrowest frame of one interior tile, taps whose
+    sums pass 2^24 (within 1)."""
+    h = rng.uniform(-2, 2, (taps_r, taps_c))
+    fir = fir2d.FixedFir2d.from_numpy(h / (taps_r * taps_c))
+    assert 255 * float(fir.bf16_rows.double().abs().sum()) < 2 ** 24
+    x = torch.from_numpy(rng.integers(0, 256, size=(37 + taps_r, 300),
+                                      dtype=np.uint8))
+    got, want = _core_vs_plain(kernel_core, "bf16", x, fir)
+    np.testing.assert_array_equal(got, want, err_msg=f"{fir.taps}")
+    fir = fir2d.FixedFir2d.from_numpy(h * 8, QFormat(16, 12, 32))
+    x = torch.from_numpy(rng.integers(0, 256, size=(20, 129 - taps_c),
+                                      dtype=np.uint8))
+    got, want = _core_vs_plain(kernel_core, "bf16", x, fir)
+    assert np.abs(got.astype(np.int16) - want).max() <= 1

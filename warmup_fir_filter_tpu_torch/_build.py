@@ -236,6 +236,25 @@ def load_library(build_dir: Path = DEFAULT_BUILD_DIR) -> ctypes.CDLL:
     return _LOADED[key]
 
 
+#: The devices the entry points run on: the card, or the plain versions on
+#: the host when the caller asks for them.
+DEVICES = ("cuda", "cpu")
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """``torch.device`` for ``device``; raises if it is CUDA and there is none."""
+    device = torch.device(device)
+    if device.type not in DEVICES:
+        raise ValueError(f"Unsupported device={device}; expected {DEVICES}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is "
+            "False; pass device=\"cpu\" (--device cpu on the command line) "
+            "to run the plain versions on the host."
+        )
+    return device
+
+
 def check_rows(x: torch.Tensor, dtypes: tuple[torch.dtype, ...]) -> None:
     """Raise unless ``x`` is a 2-D tensor of one of ``dtypes`` on the CPU
     or a GPU."""

@@ -23,6 +23,7 @@ import argparse
 import time
 from pathlib import Path
 
+from warmup_fir_filter_tpu_torch._build import DEVICES
 from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 from warmup_fir_filter_tpu_torch.pipeline.analysis import (
     generate_analysis_doc,
@@ -32,7 +33,6 @@ from warmup_fir_filter_tpu_torch.pipeline.artifacts import ArtifactStore
 from warmup_fir_filter_tpu_torch.pipeline.report import generate_compare_report
 from warmup_fir_filter_tpu_torch.pipeline.restore import restore_images
 from warmup_fir_filter_tpu_torch.pipeline.stages import (
-    DEVICES,
     FIXED_BACKENDS,
     generate_fixed_outputs,
     generate_ideal_outputs,

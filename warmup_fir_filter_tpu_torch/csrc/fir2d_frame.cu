@@ -14,28 +14,31 @@
 // values as the TPU kernel patches them, so the output frame is the TPU
 // kernel's byte for byte (wft_fir2d.cuh).
 //
-// Kernel E: no band matrices.  A thread owns one lane of 16 rows and walks
-// the plane's Lc digits over a window staged in shared memory (16 + 15 rows
-// of the three tiles around its tile), so a tall filter streams through 16
-// tap rows at a time and any Lr fits.  The per-plane sums are exact in
-// int32 (|s| < 2^23).  It is bound by instruction issue, about two
-// instructions (a shared byte load and an integer multiply-add) per tap per
-// plane per output against 2 bytes of device memory.
+// Both run each plane's band product on the int8 tensor cores (mma.sync
+// m16n8k32, s8 x s8 -> s32; wft_fir2d.cuh::eframe_warp, oframe_warp) over
+// one design: a persistent CTA of 4 warps walks work items of 32 frame rows
+// of one tile; it stages the source rows of 8 tap rows at a time in 16-byte
+// asynchronous copies (cp.async, byte by byte for a frame that is not
+// 16-byte aligned) that land while the previous item or chunk multiplies,
+// keeps the planes' shifted digit copies in shared memory (built once when
+// all planes' tap rows fit one chunk), and writes the item's output through
+// a shared tile in 16-byte stores where the output is aligned.  F stages
+// the tile's own 128 columns, K7's aligned band, and writes its boundary
+// patch three ways (oframe_write).  E stages the columns every lane reads,
+// [lo - left, lo + 128 + center) of tiles c - 1 .. c + 1 in aligned chunks,
+// and multiplies each n8 tile of lanes by one band of Lc + 7 columns: K6's
+// main band and two side bands, which exist for the TPU's 128-wide unit,
+// become one k range, since the integer sums do not depend on their order.
 //
-// Kernel F does what the TPU kernel does on the int8 tensor cores
-// (mma.sync m16n8k32, s8 x s8 -> s32; wft_fir2d.cuh::oframe_warp): each
-// plane's raw tile accumulator is one aligned band product of the tile's
-// own 128 columns, and the boundary patch becomes a three-way write of the
-// raw values (oframe_tile, oframe_write).  A CTA of 4 warps walks work
-// items of 32 frame rows of one tile; it stages only the tile's 128 columns
-// of the 39 source rows of 8 tap rows at a time, in 16-byte asynchronous
-// copies (cp.async) that land while the previous item or chunk multiplies,
-// keeps the planes' shifted digit copies in shared memory, built once when
-// all planes' tap rows fit one chunk, and writes the output in 16-byte
-// stores.  What bounds it on an H100: 2 bytes of device memory an output
-// against about 6 planes x 1.5 k32 chunks of MMA work; what holds it is
-// instruction issue (the guards and folds around the few MMAs of a plane)
-// and the latency between a CTA's barriers.
+// What bounds them on an H100: 2 bytes of device memory an output, against
+// planes x (Lc + 7) / 32 k32 chunks of MMA work an n8 tile of 16 rows.  At
+// Lc <= 97 the bytes bound them; issue around the few MMAs of a plane, the
+// latency between a CTA's barriers and, in F, the byte-wise stores of the
+// boundary patch hold them several times above that.  At Lc 98-257, where
+// fir2d_fixed_auto sends a filter to E, the MMAs and their shared-memory
+// operands take over (about 6 planes x 5-9 chunks an n8 tile): each k32
+// chunk's A fragment is loaded once for every n8 tile whose band it meets,
+// and each MMA loads two B words.
 
 #include <climits>
 #include <cstdint>
@@ -46,44 +49,6 @@
 
 namespace {
 
-constexpr int kMaxGridY = 65535;
-
-__global__ void __launch_bounds__(wft::kLane)
-fir2d_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
-             wft::Fir2dGeometry g, const int8_t* __restrict__ digits,
-             const int* __restrict__ table, int planes, uint32_t bias,
-             int needs_wrap, int frac_bits, int acc_bits) {
-  __shared__ uint8_t xs[wft::kFir2dWinRows * wft::kFir2dWinCols];
-  const long long c = blockIdx.x;
-  const int i = threadIdx.x;
-  for (long long r0 = static_cast<long long>(blockIdx.y) * wft::kFir2dRows;
-       r0 < g.hp; r0 += static_cast<long long>(gridDim.y) * wft::kFir2dRows) {
-    if (wft::fir2d_cta_is_zero(g, c, r0)) {
-      wft::fir2d_store_zero(g, y, c, r0, i);
-      continue;
-    }
-    const wft::Fir2dLane s = wft::fir2d_lane(g, c, i);
-    uint32_t acc[wft::kFir2dRows];
-#pragma unroll
-    for (int r = 0; r < wft::kFir2dRows; ++r) acc[r] = bias;
-    for (int p = 0; p < planes;) {
-      const int k0 = table[wft::kFir2dPlaneFields * p];
-      __syncthreads();  // the previous chunk's window is consumed
-      for (int u = 0; u < wft::kFir2dWinRows; ++u) {
-        const uint8_t* row = wft::fir2d_window_row(x, g, c, r0, k0, u);
-        for (int v = i; v < wft::kFir2dWinCols; v += wft::kLane) {
-          xs[u * wft::kFir2dWinCols + v] = row ? row[v] : 0;
-        }
-      }
-      __syncthreads();
-      p = wft::fir2d_int_planes(xs, s, digits, table, planes, p, k0, g.taps_c,
-                                acc);
-    }
-    wft::fir2d_int_store(g, s, acc, needs_wrap != 0, frac_bits, acc_bits, y,
-                         c, r0, i);
-  }
-}
-
 bool frame_ok(long long hp, long long wp, bool taps_ok, int taps_r,
               int planes, int t0, int core_h, int core_w, int frac_bits,
               int acc_bits) {
@@ -93,7 +58,7 @@ bool frame_ok(long long hp, long long wp, bool taps_ok, int taps_r,
          acc_bits <= 32 && wp / wft::kLane <= INT_MAX;
 }
 
-struct OframeParams {
+struct FrameParams {
   wft::Fir2dGeometry g;
   long long items;
   int planes;
@@ -103,15 +68,28 @@ struct OframeParams {
   int out_aligned;  // the output is 16-byte aligned: write 16-byte chunks
 };
 
-__global__ void __launch_bounds__(wft::kOframeThreads)
-fir2d_oframe_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
-                    const int8_t* __restrict__ digits,
-                    const int* __restrict__ table, OframeParams p) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* tile = smem + 2 * wft::kOframeBufBytes;
-  uint32_t* dcopies = reinterpret_cast<uint32_t*>(tile + wft::kOframeTileBytes);
-  // Locals, not references to the parameters, which would copy them to
-  // local memory.
+// The shared memory of a CTA: two staging buffers, the output tile and the
+// digit copies of one chunk's planes.
+size_t frame_shared_bytes(bool plain, int taps_c, int planes) {
+  const wft::EframeShape es = wft::eframe_shape(taps_c);
+  const size_t buf = plain ? wft::kOframeStageRows * es.row_bytes
+                           : wft::kOframeBufBytes;
+  const int copy_words = plain ? es.copy_words : wft::kOframeCopyWords;
+  const int chunk_planes =
+      planes < wft::kOframeMaxChunkPlanes ? planes : wft::kOframeMaxChunkPlanes;
+  return 2 * buf + wft::kOframeTileBytes +
+         16 * static_cast<size_t>(chunk_planes) * copy_words;
+}
+
+// Kernel E (Plain) or F, one CTA: items blockIdx.x, blockIdx.x + gridDim.x,
+// ..., each in chunks of planes whose source rows land while the previous
+// chunk multiplies.
+template <bool Plain>
+__device__ __forceinline__ void frame_cta(const uint8_t* __restrict__ x,
+                                          uint8_t* __restrict__ y,
+                                          const int8_t* __restrict__ digits,
+                                          const int* __restrict__ table,
+                                          FrameParams p, uint8_t* smem) {
   const wft::Fir2dGeometry g = p.g;
   const long long items = p.items;
   const int planes = p.planes;
@@ -122,27 +100,43 @@ fir2d_oframe_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
   const int warp = tid >> 5;
   const int center = g.taps_c / 2;
   const int left = g.taps_c - 1 - center;
+  const wft::EframeShape es = wft::eframe_shape(g.taps_c);
+  const int buf_bytes =
+      Plain ? wft::kOframeStageRows * es.row_bytes : wft::kOframeBufBytes;
+  const int copy_words = Plain ? es.copy_words : wft::kOframeCopyWords;
+  const int plane_words = 4 * copy_words;
+  uint8_t* tile = smem + 2 * buf_bytes;
+  uint32_t* dcopies = reinterpret_cast<uint32_t*>(tile + wft::kOframeTileBytes);
+  const auto build = [&](int p0, int p1) {
+    for (int i = tid; i < (p1 - p0) * plane_words; i += wft::kOframeThreads) {
+      dcopies[i] = wft::oframe_copy_word(digits, g.taps_c, p0 + i / plane_words,
+                                         i % plane_words, copy_words);
+    }
+  };
   // All planes in one chunk: their digit copies are built once.
   const bool single =
       planes > 0 && wft::oframe_chunk_end(table, planes, 0) == planes;
-  if (single) {
-    for (int i = tid; i < planes * wft::kOframePlaneWords;
-         i += wft::kOframeThreads) {
-      dcopies[i] = wft::oframe_copy_word(digits, g.taps_c,
-                                         i / wft::kOframePlaneWords,
-                                         i % wft::kOframePlaneWords);
-    }
-  }
+  if (single) build(0, planes);
   const auto computes = [&](const wft::OframeItem& it) {
     return !it.zero && planes > 0;
   };
   const auto stage = [&](long long item, int p0, uint8_t* buf) {
     const wft::OframeItem it = wft::oframe_item(g, item);
-    if (computes(it)) {
-      wft::oframe_stage(buf, x, g, it.c, it.r0,
-                        table[wft::kFir2dPlaneFields * p0], aligned, tid,
+    if (!computes(it)) return;
+    const int k0 = table[wft::kFir2dPlaneFields * p0];
+    if constexpr (Plain) {
+      wft::eframe_stage(buf, x, g, es, it.c, it.r0, k0, aligned, tid,
+                        wft::kOframeThreads);
+    } else {
+      wft::oframe_stage(buf, x, g, it.c, it.r0, k0, aligned, tid,
                         wft::kOframeThreads);
     }
+  };
+  const bool wrap = p.needs_wrap != 0;
+  const int frac_bits = p.frac_bits;
+  const int acc_bits = p.acc_bits;
+  const auto epilogue = [=](uint32_t a) {
+    return wft::fixed_epilogue(a, wrap, frac_bits, acc_bits);
   };
   uint32_t acc[wft::kOframeNTiles][wft::kLaneSlots][4];
   const auto clear = [&]() {
@@ -168,31 +162,30 @@ fir2d_oframe_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
       next_p0 = 0;
     }
     // The next chunk's rows land while this one multiplies.
-    if (next < items) {
-      stage(next, next_p0, smem + ((k + 1) & 1) * wft::kOframeBufBytes);
-    }
+    if (next < items) stage(next, next_p0, smem + ((k + 1) & 1) * buf_bytes);
     wft::async_commit();
     wft::async_wait<1>();
-    if (!single && computes(it)) {
-      for (int i = tid; i < (p1 - p0) * wft::kOframePlaneWords;
-           i += wft::kOframeThreads) {
-        dcopies[i] = wft::oframe_copy_word(digits, g.taps_c,
-                                           p0 + i / wft::kOframePlaneWords,
-                                           i % wft::kOframePlaneWords);
-      }
-    }
+    if (!single && computes(it)) build(p0, p1);
     __syncthreads();
     if (computes(it)) {
-      wft::oframe_warp(smem + (k & 1) * wft::kOframeBufBytes, dcopies,
-                       single ? 0 : p0, table, p0, p1,
-                       table[wft::kFir2dPlaneFields * p0], left, center, warp,
-                       acc);
+      const uint8_t* buf = smem + (k & 1) * buf_bytes;
+      const int k0 = table[wft::kFir2dPlaneFields * p0];
+      if constexpr (Plain) {
+        wft::eframe_warp(buf, es, dcopies, single ? 0 : p0, table, p0, p1, k0,
+                         g.taps_c, warp, acc);
+      } else {
+        wft::oframe_warp(buf, dcopies, single ? 0 : p0, table, p0, p1, k0,
+                         left, center, warp, acc);
+      }
     }
     if (p1 >= planes) {
-      wft::oframe_tile(g, it, warp, acc, p.needs_wrap != 0, p.frac_bits,
-                       p.acc_bits, tile);
+      wft::oframe_tile(g, it, warp, acc, epilogue, tile);
       __syncthreads();
-      wft::oframe_write(g, it, tile, vec, y, tid, wft::kOframeThreads);
+      if constexpr (Plain) {
+        wft::eframe_write(g, it, tile, vec, y, tid, wft::kOframeThreads);
+      } else {
+        wft::oframe_write(g, it, tile, vec, y, tid, wft::kOframeThreads);
+      }
       clear();
     }
     __syncthreads();  // the buffer, the copies and the tile are read before reuse
@@ -201,24 +194,70 @@ fir2d_oframe_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
   }
 }
 
-int launch_frame(const void* x, void* y, long long hp, long long wp,
-                 const void* digits, const void* table, int planes,
-                 int taps_r, int taps_c, int t0, int core_h, int core_w,
-                 uint32_t bias, int needs_wrap, int frac_bits, int acc_bits,
-                 void* stream) {
-  if (!frame_ok(hp, wp, taps_c >= 1 && taps_c <= wft::kFir2dMaxTapsC, taps_r,
-                planes, t0, core_h, core_w, frac_bits, acc_bits)) {
+__global__ void __launch_bounds__(wft::kOframeThreads)
+fir2d_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
+             const int8_t* __restrict__ digits, const int* __restrict__ table,
+             FrameParams p) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  frame_cta<true>(x, y, digits, table, p, smem);
+}
+
+__global__ void __launch_bounds__(wft::kOframeThreads)
+fir2d_oframe_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ y,
+                    const int8_t* __restrict__ digits,
+                    const int* __restrict__ table, FrameParams p) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  frame_cta<false>(x, y, digits, table, p, smem);
+}
+
+int launch(bool plain, const void* x, void* y, long long hp, long long wp,
+           const void* digits, const void* table, int planes, int taps_r,
+           int taps_c, int t0, int core_h, int core_w, uint32_t bias,
+           int needs_wrap, int frac_bits, int acc_bits, void* stream) {
+  const bool taps_ok =
+      plain ? taps_c >= 1 && taps_c <= wft::kFir2dMaxTapsC
+            : taps_c > 1 && taps_c - 1 <= wft::kFir2dMaxOverlap;
+  if (!frame_ok(hp, wp, taps_ok, taps_r, planes, t0, core_h, core_w,
+                frac_bits, acc_bits)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const wft::Fir2dGeometry g{hp, wp, t0, core_h, core_w, taps_r, taps_c, 0};
-  const long long row_blocks = (hp + wft::kFir2dRows - 1) / wft::kFir2dRows;
-  const dim3 grid(static_cast<unsigned>(wp / wft::kLane),
-                  static_cast<unsigned>(row_blocks < kMaxGridY ? row_blocks
-                                                               : kMaxGridY));
-  fir2d_kernel<<<grid, wft::kLane, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x), static_cast<uint8_t*>(y), g,
-      static_cast<const int8_t*>(digits), static_cast<const int*>(table),
-      planes, bias, needs_wrap, frac_bits, acc_bits);
+  FrameParams p;
+  p.g = wft::Fir2dGeometry{hp, wp, t0, core_h, core_w, taps_r, taps_c};
+  const long long row_blocks = (hp + wft::kOframeRows - 1) / wft::kOframeRows;
+  p.items = row_blocks * (wp / wft::kLane);
+  p.planes = planes;
+  p.bias = bias;
+  p.needs_wrap = needs_wrap;
+  p.frac_bits = frac_bits;
+  p.acc_bits = acc_bits;
+  p.aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  p.out_aligned = reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const auto kernel = plain ? fir2d_kernel : fir2d_oframe_kernel;
+  const size_t shared_bytes = frame_shared_bytes(plain, taps_c, planes);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(shared_bytes));
+  // A persistent grid: as many CTAs as are resident at once.
+  int device = 0;
+  int sms = 0;
+  int per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, wft::kOframeThreads, shared_bytes);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long resident =
+      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid =
+      static_cast<unsigned>(p.items < resident ? p.items : resident);
+  kernel<<<grid, wft::kOframeThreads, shared_bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(x), static_cast<uint8_t*>(y),
+      static_cast<const int8_t*>(digits), static_cast<const int*>(table), p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -232,9 +271,8 @@ extern "C" int wft_fir2d_frame(const void* x, void* y, long long hp,
                                int taps_c, int t0, int core_h, int core_w,
                                uint32_t bias, int needs_wrap, int frac_bits,
                                int acc_bits, void* stream) {
-  return launch_frame(x, y, hp, wp, digits, table, planes, taps_r, taps_c, t0,
-                      core_h, core_w, bias, needs_wrap, frac_bits, acc_bits,
-                      stream);
+  return launch(true, x, y, hp, wp, digits, table, planes, taps_r, taps_c, t0,
+                core_h, core_w, bias, needs_wrap, frac_bits, acc_bits, stream);
 }
 
 extern "C" int wft_fir2d_oframe(const void* x, void* y, long long hp,
@@ -243,50 +281,6 @@ extern "C" int wft_fir2d_oframe(const void* x, void* y, long long hp,
                                 int taps_c, int t0, int core_h, int core_w,
                                 uint32_t bias, int needs_wrap, int frac_bits,
                                 int acc_bits, void* stream) {
-  if (!frame_ok(hp, wp,
-                taps_c > 1 && taps_c - 1 <= wft::kFir2dMaxOverlap, taps_r,
-                planes, t0, core_h, core_w, frac_bits, acc_bits)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  OframeParams p;
-  p.g = wft::Fir2dGeometry{hp, wp, t0, core_h, core_w, taps_r, taps_c, 1};
-  const long long row_blocks = (hp + wft::kOframeRows - 1) / wft::kOframeRows;
-  p.items = row_blocks * (wp / wft::kLane);
-  p.planes = planes;
-  p.bias = bias;
-  p.needs_wrap = needs_wrap;
-  p.frac_bits = frac_bits;
-  p.acc_bits = acc_bits;
-  p.aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  p.out_aligned = reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  const int chunk_planes =
-      planes < wft::kOframeMaxChunkPlanes ? planes : wft::kOframeMaxChunkPlanes;
-  const size_t shared_bytes =
-      2 * static_cast<size_t>(wft::kOframeBufBytes) + wft::kOframeTileBytes +
-      4 * static_cast<size_t>(chunk_planes) * wft::kOframePlaneWords;
-  cudaError_t err = cudaFuncSetAttribute(
-      fir2d_oframe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(shared_bytes));
-  // A persistent grid: as many CTAs as are resident at once.
-  int device = 0;
-  int sms = 0;
-  int per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fir2d_oframe_kernel, wft::kOframeThreads, shared_bytes);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long resident =
-      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  const unsigned grid =
-      static_cast<unsigned>(p.items < resident ? p.items : resident);
-  fir2d_oframe_kernel<<<grid, wft::kOframeThreads, shared_bytes,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x), static_cast<uint8_t*>(y),
-      static_cast<const int8_t*>(digits), static_cast<const int*>(table), p);
-  return static_cast<int>(cudaGetLastError());
+  return launch(false, x, y, hp, wp, digits, table, planes, taps_r, taps_c, t0,
+                core_h, core_w, bias, needs_wrap, frac_bits, acc_bits, stream);
 }

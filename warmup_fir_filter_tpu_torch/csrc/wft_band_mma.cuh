@@ -1,20 +1,22 @@
-// Warp-level int8 tensor-core band products shared by kernels C
-// (fir_window.cu) and F (fir2d_frame.cu).
+// Warp-level tensor-core band products shared by kernels C
+// (fir_window.cu), E and F (fir2d_frame.cu) and G (fir2d_bf16.cu).
 //
-// Both kernels multiply staged, rebiased samples by the Toeplitz band of a
+// C, E and F multiply staged, rebiased samples by the Toeplitz band of a
 // digit plane on mma.sync.aligned.m16n8k32 (s8 x s8 -> s32), as the TPU
 // kernels multiply by band planes on their matrix unit, without building
 // the band: a B fragment word holds 4 consecutive k of one column n, that
 // is 4 consecutive reversed digits, so with four copies of a plane's
 // reversed digits shifted by 0-3 bytes every fragment word is one aligned
-// 32-bit shared-memory load (band_copy_word).
+// 32-bit shared-memory load (band_copy_word).  G does the same on
+// mma.sync.aligned.m16n8k16 (bf16 x bf16 -> f32) with two copies of a tap
+// row's reversed bf16 taps shifted by one element.
 //
 // Like the other headers, this one also compiles as plain C++.  On the host
 // a warp's 32 lanes run as one unit: per-lane values live in arrays of
 // kLaneSlots (32 on the host, 1 on the card), WFT_LANES(l) loops over the
-// lanes (on the card it is the thread's own lane), and mma_s8 emulates the
-// instruction from the PTX fragment layout, so the CPU tests run the
-// kernels' own index maths.
+// lanes (on the card it is the thread's own lane), and mma_s8 and mma_bf16
+// emulate the instructions from the PTX fragment layout, so the CPU tests
+// run the kernels' own index maths.
 #pragma once
 
 #include <cstdint>
@@ -108,6 +110,80 @@ WFT_INLINE void mma_s8(int32_t (*d)[4], uint32_t (*a)[4], uint32_t (*b)[2]) {
         sum += static_cast<uint32_t>(am[row][k] * bm[k][col]);
       }
       d[l][j] = static_cast<int32_t>(sum);
+    }
+  }
+#endif
+}
+
+// The bits of a float.
+WFT_INLINE uint32_t float_bits(float f) {
+#if defined(__CUDA_ARCH__)
+  return __float_as_uint(f);
+#else
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+#endif
+}
+
+// The float of bf16 bits h (the upper half of a float's bits).
+WFT_INLINE float bf16_float(uint32_t h) {
+#if defined(__CUDA_ARCH__)
+  return __uint_as_float(h << 16);
+#else
+  const uint32_t u = h << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+#endif
+}
+
+// d += a * b over one m16n8k16 tile, bf16 x bf16 -> f32, for a whole warp.
+// Lane l = 4g + t holds the fragments of mma.sync.aligned.m16n8k16.row.col
+// with .bf16 operands (PTX ISA, "Matrix Fragments for mma.m16n8k16 with
+// floating point type"), the low half of a word being the lower k:
+//   a[0] A(g, 2t..2t+1)     a[1] A(g+8, 2t..2t+1)
+//   a[2] A(g, 8+2t..+1)     a[3] A(g+8, 8+2t..+1)
+//   b[0] B(2t..2t+1, g)     b[1] B(8+2t..+1, g)
+//   d as mma_s8's.
+// Every product of two bf16 values is exact in f32.  The host sums each
+// element's 16 products and d in double and rounds once to f32; the card
+// adds with its own alignment, so the two agree wherever every partial sum
+// is an integer below 2^24 (kernel G's exact case).
+WFT_INLINE void mma_bf16(float (*d)[4], uint32_t (*a)[4], uint32_t (*b)[2]) {
+#if defined(__CUDA_ARCH__)
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
+      : "r"(a[0][0]), "r"(a[0][1]), "r"(a[0][2]), "r"(a[0][3]),
+        "r"(b[0][0]), "r"(b[0][1]));
+#else
+  double am[16][16];
+  double bm[16][8];
+  for (int l = 0; l < kWarp; ++l) {
+    const int g = l >> 2;
+    const int t = l & 3;
+    for (int i = 0; i < 2; ++i) {
+      const auto el = [i](uint32_t w) {
+        return static_cast<double>(bf16_float((w >> (16 * i)) & 0xffffu));
+      };
+      am[g][2 * t + i] = el(a[l][0]);
+      am[g + 8][2 * t + i] = el(a[l][1]);
+      am[g][8 + 2 * t + i] = el(a[l][2]);
+      am[g + 8][8 + 2 * t + i] = el(a[l][3]);
+      bm[2 * t + i][g] = el(b[l][0]);
+      bm[8 + 2 * t + i][g] = el(b[l][1]);
+    }
+  }
+  for (int l = 0; l < kWarp; ++l) {
+    const int g = l >> 2;
+    const int t = l & 3;
+    for (int j = 0; j < 4; ++j) {
+      const int row = g + 8 * (j >> 1);
+      const int col = 2 * t + (j & 1);
+      double sum = d[l][j];
+      for (int k = 0; k < 16; ++k) sum += am[row][k] * bm[k][col];
+      d[l][j] = static_cast<float>(sum);
     }
   }
 #endif

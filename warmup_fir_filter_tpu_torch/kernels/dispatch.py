@@ -34,7 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from warmup_fir_filter_tpu_torch.kernels.fir2d import fir2d_fixed_mxu
+from warmup_fir_filter_tpu_torch.kernels.fir2d import as_image, fir2d_fixed_mxu
 from warmup_fir_filter_tpu_torch.kernels.fir_band import MAX_TAPS, FixedFir1d
 from warmup_fir_filter_tpu_torch.kernels.fir_direct import FixedFirDirect
 from warmup_fir_filter_tpu_torch.kernels.fir_window import (
@@ -79,8 +79,10 @@ def fir1d_fixed_rows_auto(x_u8: torch.Tensor, h,
 def fir2d_fixed_auto(x_u8: torch.Tensor, h,
                      qformat: QFormat = QFormat()) -> torch.Tensor:
     """Bit-exact fixed 2-D FIR over an (H, W) uint8 image on
-    ``x_u8.device``: the frame kernels when the column taps fit a band
-    (Lc ≤ 257), else the int32 path.  Raises for ``acc_bits > 32``."""
+    ``x_u8.device`` (a host array goes to the card, ``as_image``): the
+    frame kernels when the column taps fit a band (Lc ≤ 257), else the
+    int32 path.  Raises for ``acc_bits > 32``."""
+    x_u8 = as_image(x_u8)
     h = np.asarray(h)
     if h.ndim == 2 and h.shape[1] <= MAX_TAPS:
         return fir2d_fixed_mxu(x_u8, h, qformat)

@@ -30,8 +30,13 @@ frame can be fed straight back in.
 (kernel F, same source) and :func:`fir2d_bf16` (kernel G,
 ``csrc/fir2d_bf16.cu``) launch their kernel on a CUDA tensor and run the
 plain version (:func:`fir2d_frame_plain`, :func:`fir2d_oframe_plain`,
-:func:`fir2d_bf16_plain`) on a CPU tensor.  The frame functions keep the
-JAX names: :func:`fir2d_fixed_frame`, :func:`fir2d_fixed_frame_overlap`,
+:func:`fir2d_bf16_plain`) on a CPU tensor.  All three kernels run their
+band products on the tensor cores (E and F int8, G bf16) and build the
+bands' shifted tap copies in shared memory from ``digits`` or
+``bf16_rows``.  The image entries (:func:`pad_frame`,
+:func:`pad_frame_overlap`, :func:`fir2d_fixed_mxu`) run on a tensor's
+device and put a host array on the card (:func:`as_image`).  The frame
+functions keep the JAX names: :func:`fir2d_fixed_frame`, :func:`fir2d_fixed_frame_overlap`,
 :func:`fir2d_frame_overlap_bf16` and the single-shot
 :func:`fir2d_fixed_mxu`.  Their ``scratch`` is the output buffer: written
 in place and returned; it may not share memory with the input, because a
@@ -46,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from warmup_fir_filter_tpu_torch import _build
+from warmup_fir_filter_tpu_torch._build import resolve_device
 from warmup_fir_filter_tpu_torch.kernels.fir_band import (
     LANE,
     MAX_TAPS,
@@ -214,19 +220,26 @@ def frame_geometry(
     return t0, hp, wp, block_rows
 
 
-def _as_image(x_u8) -> torch.Tensor:
-    x = torch.as_tensor(x_u8, dtype=torch.uint8)
+def as_image(x_u8) -> torch.Tensor:
+    """``x_u8`` as an (H, W) uint8 tensor.  A torch tensor keeps its device
+    (a CPU tensor runs the plain versions); a host array goes to the card,
+    as the JAX functions put it on their accelerator, and raises where
+    there is no CUDA (:func:`resolve_device`)."""
+    device = (x_u8.device if isinstance(x_u8, torch.Tensor)
+              else resolve_device("cuda"))
+    x = torch.as_tensor(x_u8, dtype=torch.uint8, device=device)
     if x.dim() != 2:
         raise ValueError(f"expected an (H, W) image, got shape {tuple(x.shape)}")
     return x
 
 
 def pad_frame(x_u8, taps_r: int, *, block_rows: int | None = None):
-    """Embed an (H, W) image into the plain frame, on the image's device.
+    """Embed an (H, W) image into the plain frame, on the image's device
+    (:func:`as_image`).
 
     Returns ``(x_ext, (t0, h_img, w_img, block_rows))``.
     """
-    x = _as_image(x_u8)
+    x = as_image(x_u8)
     h_img, w_img = x.shape
     t0, hp, wp, block_rows = frame_geometry(h_img, w_img, taps_r,
                                             block_rows=block_rows)
@@ -266,11 +279,12 @@ def oframe_geometry(
 def pad_frame_overlap(
     x_u8, taps_r: int, taps_c: int, *, block_rows: int | None = None
 ):
-    """Embed an (H, W) image into the overlapped frame, on its device.
+    """Embed an (H, W) image into the overlapped frame, on its device
+    (:func:`as_image`).
 
     Returns ``(x_ext, (t0, h_img, w_img, block_rows))``.
     """
-    x = _as_image(x_u8)
+    x = as_image(x_u8)
     h_img, w_img = x.shape
     t0, hp, wp, block_rows, stride = oframe_geometry(
         h_img, w_img, taps_r, taps_c, block_rows=block_rows)
@@ -627,9 +641,12 @@ def fir2d_frame(x_ext: torch.Tensor, fir: FixedFir2d,
     """Kernel E over a plain frame on a CUDA tensor; :func:`fir2d_frame_plain`
     on a CPU tensor.  ``out`` receives the frame (a new one when None).
 
-    Raises on a frame the kernels do not take, an ``out`` that is not a
-    separate buffer of the frame's shape, ``acc_bits > 32``, a failed build
-    or a failed launch.  Counts its launches in ``fir2d_frame.launches``.
+    Kernel E multiplies each plane by one band over the columns every lane
+    reads (the tile and its neighbours' ``left`` and ``center`` columns) on
+    the int8 tensor cores; it reads ``digits`` and ``plane_table``.  Raises
+    on a frame the kernels do not take, an ``out`` that is not a separate
+    buffer of the frame's shape, ``acc_bits > 32``, a failed build or a
+    failed launch.  Counts its launches in ``fir2d_frame.launches``.
     """
     _check_frame(x_ext, fir, core, out)
     _check_int_format(fir.qformat)
@@ -651,8 +668,10 @@ def fir2d_oframe(x_ext: torch.Tensor, fir: FixedFir2d,
                  core: tuple[int, int, int], *,
                  out: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel F over an overlapped frame on a CUDA tensor;
-    :func:`fir2d_oframe_plain` on a CPU tensor.  As :func:`fir2d_frame`;
-    ``1 < Lc <= 97``.  Counts its launches in ``fir2d_oframe.launches``."""
+    :func:`fir2d_oframe_plain` on a CPU tensor.  As :func:`fir2d_frame`,
+    with K7's aligned band of the tile's own columns and its boundary
+    patch; ``1 < Lc <= 97``.  Counts its launches in
+    ``fir2d_oframe.launches``."""
     _check_frame(x_ext, fir, core, out)
     _check_int_format(fir.qformat)
     _check_overlap(fir.taps[1])
@@ -675,7 +694,9 @@ def fir2d_bf16(x_ext: torch.Tensor, fir: FixedFir2d,
                out: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel G over an overlapped frame on a CUDA tensor;
     :func:`fir2d_bf16_plain` on a CPU tensor.  As :func:`fir2d_oframe`,
-    without the int32 format limits.  Counts its launches in
+    without the int32 format limits: one band per tap row on the bf16
+    tensor cores with f32 sums, added in tap-row order; it reads
+    ``bf16_rows`` and ``bf16_table``.  Counts its launches in
     ``fir2d_bf16.launches``."""
     _check_frame(x_ext, fir, core, out)
     _check_overlap(fir.taps[1])
@@ -804,7 +825,8 @@ def fir2d_fixed_mxu(
     layout: str = "auto",
 ) -> torch.Tensor:
     """Bit-exact fixed 2-D FIR over an (H, W) image (``:1203``): embed it in
-    a frame, filter, crop.  ``layout`` is ``"overlap"`` (``Lc <= 97``),
+    a frame, filter, crop, on the image's device (a host array goes to the
+    card, :func:`as_image`).  ``layout`` is ``"overlap"`` (``Lc <= 97``),
     ``"plain"`` (``Lc <= 257``) or ``"auto"`` (overlap where it fits)."""
     taps_r, taps_c = (int(d) for d in np.asarray(h).shape)
     if layout == "auto":

@@ -38,6 +38,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from warmup_fir_filter_tpu_torch._build import resolve_device
 from warmup_fir_filter_tpu_torch.kernels.dispatch import prepare_fixed_fir
 from warmup_fir_filter_tpu_torch.kernels.window_copy import (
     LANE,
@@ -45,7 +46,6 @@ from warmup_fir_filter_tpu_torch.kernels.window_copy import (
     window_rows_supported,
 )
 from warmup_fir_filter_tpu_torch.ops.fir1d import fixed_fir_prehaloed_i32
-from warmup_fir_filter_tpu_torch.pipeline.stages import resolve_device
 from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
 #: Odd (bijective mod 2^32) Weyl constant of the third checksum.

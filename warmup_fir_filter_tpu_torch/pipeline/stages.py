@@ -26,6 +26,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from warmup_fir_filter_tpu_torch._build import resolve_device
 from warmup_fir_filter_tpu_torch.kernels.dispatch import fir1d_fixed_rows_auto
 from warmup_fir_filter_tpu_torch.kernels.fir_band import FixedFir1d
 from warmup_fir_filter_tpu_torch.kernels.fir_direct import fir_direct
@@ -46,7 +47,6 @@ from warmup_fir_filter_tpu_torch.utils.logging import timed_entry_point
 from warmup_fir_filter_tpu_torch.utils.profiling import StageTimer
 
 FIXED_BACKENDS = ("auto", "band", "direct", "torch", "golden")
-DEVICES = ("cuda", "cpu")
 
 
 def _preview_payload(gray_u8: np.ndarray, *, max_rows: int = 8,
@@ -213,20 +213,6 @@ def generate_ideal_outputs(
                 counts.add_samples(y.size)
         generated = counts["generated"]
     return generated
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    """``torch.device`` for ``device``; raises if it is CUDA and there is none."""
-    device = torch.device(device)
-    if device.type not in DEVICES:
-        raise ValueError(f"Unsupported device={device}; expected {DEVICES}")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device 'cuda' requested but torch.cuda.is_available() is "
-            "False; pass device=\"cpu\" (--device cpu on the command line) "
-            "to run the plain versions on the host."
-        )
-    return device
 
 
 def _fixed_compute(backend: str, x_u8: np.ndarray, h: np.ndarray,

@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Probe of kernels A (``fir_band``), C (``fir_window``), F
-(``fir2d_oframe``), K (``fft_rows``), L (``osfilt``) and M
-(``osfilt_stream``) on one GPU.
+"""Probe of kernels A (``fir_band``), C (``fir_window``), E (``fir2d_frame``),
+F (``fir2d_oframe``), G (``fir2d_bf16``), K (``fft_rows``), L (``osfilt``)
+and M (``osfilt_stream``) on one GPU.
 
     python3 warmup_fir_filter_tpu_torch/probe_kernels.py check
         ``nvcc -Xptxas -v`` on ``fir_band.cu``, ``fir_window.cu``,
-        ``fir2d_frame.cu``, ``fft_rows.cu``, ``osfilt.cu`` and
-        ``osfilt_stream.cu`` (registers, stack and spills of each kernel,
-        and whether its SASS from ``cuobjdump -sass`` holds ``IMMA``, all
-        six compiles started together), then kernel A against its plain
+        ``fir2d_frame.cu``, ``fir2d_bf16.cu``, ``fft_rows.cu``,
+        ``osfilt.cu`` and ``osfilt_stream.cu`` (registers, stack and spills
+        of each kernel, and how many ``IMMA`` and ``HMMA`` instructions its
+        SASS from ``cuobjdump -sass`` holds, all seven compiles started
+        together), then kernel A against its plain
         version over taps 1-257 x Q-formats x widths 1-40,000 and
         misaligned inputs (``torch.equal``), kernel C over taps 1-4,096 x
         widths 1-4,099 x rows 1-33 x Q-formats and misaligned inputs,
-        kernel F over whole frames of Lc 2-97 x Lr 1-33 x formats and
-        noise frames (``torch.equal``), kernel K against
+        kernels E, F and G over whole frames (E: Lc 1-257 x Lr 1-33 x
+        widths 1-4,099; F: Lc 2-97 x Lr 1-33; G: Lc 2-97 x Lr 1-17; each
+        over formats, noise frames and frames at byte offsets; E and F
+        ``torch.equal``, G too where its f32 sums are exact, else within
+        1), kernel K against
         its float64 plain version at every size 2-16,384 (SNR >= 120 dB,
         within 2e-4 of ``torch.fft``), kernel L at every nfft 2-16,384 and
         kernel M over its stream cases and window-plan edges against their
@@ -27,7 +31,8 @@
         at 258, 1,001, 2,048 and 4,096 taps at 19,456 x 8,192 and at 1,001
         taps on a long-tap stream block (16 x 4,001,000 u8), kernels E, F
         and G and a frame ``copy_`` at ``bench_2d.py``'s 8192² for sharpen5
-        and gauss5, and
+        and gauss5, E also for the 3 x 129 and 3 x 257 filters
+        ``fir2d_fixed_auto`` sends it, and
         at BASELINE config 4 (16 x 10,000,000, 63 taps) kernel M (f32, and
         u8 in and out), kernel L over the stream framed at nfft 2,048,
         ``F.conv1d`` (TF32 off) and the ``torch.fft`` overlap-save, for the
@@ -59,15 +64,18 @@ STREAM_CASES = ((3, 2000, 63, 0), (2, 1111, 63, 31), (1, 700, 5, 0),
                 (2, 449, 63, 0), (2, 450, 63, 0), (2, 451, 63, 0),
                 (2, 3000, 63, 31), (2, 3000, 63, 62))
 PTXAS_SOURCES = ("fir_band.cu", "fir_window.cu", "fir2d_frame.cu",
-                 "fft_rows.cu", "osfilt.cu", "osfilt_stream.cu")
+                 "fir2d_bf16.cu", "fft_rows.cu", "osfilt.cu", "osfilt_stream.cu")
+#: The tensor-core instructions counted in each kernel's SASS.
+MMA_SASS = ("IMMA", "HMMA")
 FFT_SOURCES = ("fft_rows.cu", "osfilt.cu", "osfilt_stream.cu")
 
 
 def ptxas(label: str, sources=PTXAS_SOURCES) -> int:
     """``nvcc -Xptxas -v`` on ``sources``, all started together: one line a
     source with each kernel instance's registers, and its stack and spill
-    bytes where they are not 0, then the kernels whose SASS holds ``IMMA``
-    (``cuobjdump -sass``).  Returns the number of failed compiles."""
+    bytes where they are not 0, then each kernel's count of ``IMMA`` and
+    ``HMMA`` instructions (``cuobjdump -sass``).  Returns the number of
+    failed compiles."""
     import re
 
     from warmup_fir_filter_tpu_torch import _build
@@ -99,7 +107,7 @@ def ptxas(label: str, sources=PTXAS_SOURCES) -> int:
     for src, proc in procs.items():
         _, err = proc.communicate()
         obj = _build.DEFAULT_BUILD_DIR / f"ptxas_{src}.o"
-        imma = {}
+        mma = {}
         if proc.returncode == 0 and os.path.exists(cuobjdump):
             sass = subprocess.run([cuobjdump, "-sass", str(obj)],
                                   capture_output=True, text=True).stdout
@@ -108,9 +116,10 @@ def ptxas(label: str, sources=PTXAS_SOURCES) -> int:
                 m = re.search(r"Function : (\w+)", ln)
                 if m:
                     fn = kernel_name(m.group(1))
-                    imma[fn] = 0
-                elif fn and "IMMA" in ln:
-                    imma[fn] += 1
+                    mma[fn] = dict.fromkeys(MMA_SASS, 0)
+                elif fn:
+                    for op in MMA_SASS:
+                        mma[fn][op] += op in ln
         obj.unlink(missing_ok=True)
         name, rows = None, []
         for ln in err.splitlines():
@@ -128,8 +137,8 @@ def ptxas(label: str, sources=PTXAS_SOURCES) -> int:
         print(f"[{label}] ptxas {src} rc={proc.returncode}: " + " ".join(rows),
               flush=True)
         print(f"[{label}] sass {src}: " + (" ".join(
-            f"{fn}:IMMA={count}" for fn, count in imma.items()) or
-            "cuobjdump not run"), flush=True)
+            f"{fn}:" + ",".join(f"{op}={n}" for op, n in ops.items())
+            for fn, ops in mma.items()) or "cuobjdump not run"), flush=True)
         failed += proc.returncode != 0
     print(f"[{label}] ptxas {time.perf_counter() - t0:.1f} s", flush=True)
     return failed
@@ -218,7 +227,7 @@ def check() -> int:
                     print("A MISALIGNED MISMATCH", fmt, taps, off)
     torch.cuda.synchronize()
     print(f"[A] {count} comparisons, {fails} mismatches")
-    fails += check_window(rng) + check_oframe(rng)
+    fails += check_window(rng) + check_frames(rng)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = 200.0
@@ -360,20 +369,31 @@ def check_window(rng) -> int:
     return fails
 
 
-def check_oframe(rng) -> int:
-    """Kernel F against ``fir2d_oframe_plain`` (on the card), whole output
-    frames: the bank on images, noise frames and frames at a byte offset
-    (staged and written byte by byte), Lc 2-97 x Lr 1-33 over four
-    formats, frames of three tiles.  Returns the mismatches."""
+def check_frames(rng) -> int:
+    """Kernels E, F and G against their plain versions (on the card), whole
+    output frames: the bank on images, noise frames and frames at byte
+    offsets (staged and written byte by byte); E over Lc 1-257 x Lr 1-33 x
+    widths 1-4,099, F over Lc 2-97 x Lr 1-33, each over four formats
+    (wrapping ones among them), E also with the all-zero filter and a plane
+    at exponent 32; G over Lc 2-97 x Lr 1-17 with taps scaled so that its
+    f32 sums stay exact, and the bank.  E and F ``torch.equal``; G too where
+    its f32 sums are exact (``bf16_sums_exact``), else within 1.  Returns
+    the mismatches."""
     import numpy as np
     import torch
 
     from warmup_fir_filter_tpu_torch.kernels.fir2d import (
-        FixedFir2d, fir2d_oframe, fir2d_oframe_plain, pad_frame_overlap)
+        FixedFir2d, fir2d_bf16, fir2d_bf16_plain, fir2d_frame,
+        fir2d_frame_plain, fir2d_oframe, fir2d_oframe_plain, pad_frame,
+        pad_frame_overlap)
     from warmup_fir_filter_tpu_torch.ops.fir2d import FILTER_BANK_2D
     from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
-    fails = count = 0
+    kernels = {"E": (fir2d_frame, fir2d_frame_plain),
+               "F": (fir2d_oframe, fir2d_oframe_plain),
+               "G": (fir2d_bf16, fir2d_bf16_plain)}
+    fails = dict.fromkeys(kernels, 0)
+    count = dict.fromkeys(kernels, 0)
 
     def shifted(t, offset):
         """A copy of ``t`` at a byte offset from an aligned allocation."""
@@ -381,39 +401,65 @@ def check_oframe(rng) -> int:
         view = buf[offset:offset + t.numel()].view(t.shape)
         return view.copy_(t)
 
-    def one(h, qf, h_img, w_img, noise, label, offset=0):
-        nonlocal fails, count
-        fir = FixedFir2d.from_numpy(h, qf, "cuda")
+    def one(kind, fir, h_img, w_img, noise, label, offset=0):
         x = torch.from_numpy(rng.integers(0, 256, size=(h_img, w_img),
                                           dtype=np.uint8)).cuda()
-        frame, geo = pad_frame_overlap(x, *fir.taps, block_rows=16)
+        frame, geo = (pad_frame(x, fir.taps[0], block_rows=16) if kind == "E"
+                      else pad_frame_overlap(x, *fir.taps, block_rows=16))
         if noise:
             frame = torch.randint_like(frame, 0, 256)
         if offset:
             frame = shifted(frame, offset)
-        got = fir2d_oframe(frame, fir, geo[:3], out=shifted(
+        kernel, plain = kernels[kind]
+        got = kernel(frame, fir, geo[:3], out=shifted(
             torch.full_like(frame, 0xAB), offset))
-        want = fir2d_oframe_plain(frame, fir, geo[:3])
-        count += 1
-        if not torch.equal(got, want):
-            fails += 1
-            print("F MISMATCH", label, fir.taps, h_img, w_img, qf,
-                  int((got != want).sum()))
+        want = plain(frame, fir, geo[:3])
+        exact = kind != "G" or 255 * float(
+            fir.bf16_rows.double().abs().sum()) < 2 ** 24
+        diff = int((got.int() - want.int()).abs().max())
+        count[kind] += 1
+        if diff > (0 if exact else 1):
+            fails[kind] += 1
+            print(f"{kind} MISMATCH", label, fir.taps, h_img, w_img,
+                  fir.qformat, offset, int((got != want).sum()), diff)
 
     for name, h in FILTER_BANK_2D.items():
-        for noise in (False, True):
-            one(np.asarray(h), QFormat(), 70, 700, noise, name)
-        one(np.asarray(h), QFormat(), 70, 700, False, name + " offset 3", 3)
+        for kind in kernels:
+            fir = FixedFir2d.from_numpy(np.asarray(h), QFormat(), "cuda")
+            for noise in (False, True):
+                one(kind, fir, 70, 700, noise, name)
+            for offset in (1, 3, 8):
+                one(kind, fir, 70, 700, False, f"{name} offset", offset)
     formats = ((16, 12, 32), (16, 12, 18), (16, 12, 20), (32, 24, 32))
+    widths = (1, 127, 128, 700, 4099)
+    for i, lc in enumerate((1, 2, 5, 97, 98, 129, 200, 257)):
+        for k, lr in enumerate((1, 2, 5, 17, 33)):
+            qf = QFormat(*formats[(i + k) % 4])
+            fir = FixedFir2d.from_numpy(rng.uniform(-2, 2, (lr, lc)), qf,
+                                        "cuda")
+            one("E", fir, 37 + lr, widths[(i + k) % 5], False, "grid")
+            one("E", fir, 20, 130 + 7 * lc, True, "noise")
+    qf = QFormat(32, 12, 32)
+    h_fixed = np.array([[2**31 - 1, -(2**31 - 1), 12345, 2**30 + 7] * 33,
+                        [5, -3, 0, 7] * 33])
+    for fir in (FixedFir2d(h_fixed, qf, "cuda"),
+                FixedFir2d.from_numpy(np.zeros((3, 129)), QFormat(), "cuda")):
+        one("E", fir, 40, 300, False, f"planes {fir.exponents}")
     for lc in (2, 3, 5, 33, 85, 86, 87, 90, 96, 97):
         for k, lr in enumerate((1, 2, 5, 17, 33)):
             qf = QFormat(*formats[(lc + k) % 4])
             h = rng.uniform(-2, 2, (lr, lc))
-            one(h, qf, 37 + lr, 130 + 7 * lc, False, "grid")
-            one(h, qf, 20, 128 - (lc - 1), True, "three tiles")
+            fir = FixedFir2d.from_numpy(h, qf, "cuda")
+            one("F", fir, 37 + lr, 130 + 7 * lc, False, "grid")
+            one("F", fir, 20, 128 - (lc - 1), True, "three tiles")
+            if lr <= 17:
+                fir = FixedFir2d.from_numpy(h / (lr * lc), QFormat(), "cuda")
+                one("G", fir, 37 + lr, 130 + 7 * lc, False, "grid")
+                one("G", fir, 20, 128 - (lc - 1), True, "three tiles")
     torch.cuda.synchronize()
-    print(f"[F] {count} comparisons, {fails} mismatches")
-    return fails
+    for kind in kernels:
+        print(f"[{kind}] {count[kind]} comparisons, {fails[kind]} mismatches")
+    return sum(fails.values())
 
 
 def times(tree: str, label: str) -> None:
@@ -504,6 +550,17 @@ def times(tree: str, label: str) -> None:
             runs[f"{kernel.__name__} {name} {tuple(frame.shape)}"] = (
                 lambda k=kernel, f=frame, c=geo[:3], o=out, ff=fir2:
                 k(f, ff, c, out=o))
+    # The filters fir2d_fixed_auto sends to kernel E: 3 x 129 (config 3's
+    # check) and 3 x 257, random taps of both signs from seed 3.
+    for lc in (129, 257):
+        h = np.random.default_rng(3).uniform(-1.0, 1.0, (3, lc)) * 2.0 / \
+            np.sqrt(3 * lc)
+        fir2 = FixedFir2d.from_numpy(h, qf, "cuda")
+        frame, geo = pad_frame(image, 3)
+        out = torch.empty_like(frame)
+        runs[f"fir2d_frame 3x{lc} {tuple(frame.shape)}"] = (
+            lambda f=frame, c=geo[:3], o=out, ff=fir2: fir2d_frame(
+                f, ff, c, out=o))
     frame = pad_frame_overlap(image, 5, 5)[0]
     copy_dst = torch.empty_like(frame)
     runs[f"copy {tuple(frame.shape)} u8"] = lambda: copy_dst.copy_(frame)
