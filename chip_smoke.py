@@ -65,10 +65,12 @@ of them pass:
 10. chain   kernels H (float FIR), I (polyphase resampler) and J (fused
     kernels chain) against their plain versions, which run in float64 on
             the card: H and I over taps × rates × ragged widths and at the
-            main path's shapes, SNR >= 120 dB; J over the six geometries
-            of tests/test_chain_fused.py on FM signals at ragged lengths,
-            SNR >= 95 dB in "highest" and > 40 dB against the f32 chain
-            in "bf16".
+            main path's shapes, SNR >= 120 dB (I also on its compact
+            route: 1/16, 1/56 and a 6,001-tap branch at 2/1); J over the
+            six geometries of tests/test_chain_fused.py and 1/8 and 1/15
+            (the compact route) on FM signals at ragged lengths, SNR >=
+            95 dB in "highest" and > 40 dB against the f32 chain in
+            "bf16".
 11. config  BASELINE config 5 at bench_configs.py's size (16 channels ×
     5       2,000,000 complex f32 samples, seeded as there, and an FM
             signal of the same shape): ``chain_forward`` "auto" through
@@ -241,6 +243,7 @@ from warmup_fir_filter_tpu_torch.pipeline.synthetic import (
     _render as render_image,
 )
 from warmup_fir_filter_tpu_torch.utils.imageio import save_gray_png
+from yardsticks import conv1d_resample, conv1d_resampler
 
 SEED = 20261016
 #: Host clock at import: the phases print their start against it.
@@ -339,17 +342,29 @@ PLAIN_2D_CALLS = 2
 #: config 3's 3 × 129 check and the widest band, 3 × 257, timed at 8192².
 E_TIMING_SHAPES = ((3, 129), (3, 257))
 #: Kernels H and I's grid: (taps, up, down) over ragged widths, u8 and f32
-#: rows for H.
+#: rows for H; I's 1/16 and 1/56 take its compact route.
 FLOAT_TAPS = (1, 2, 5, 63, 64, 129, 257)
 FLOAT_WIDTHS = (1, 1023, 1025, 40001)
 RESAMPLE_RATES = ((2, 3, 63), (4, 3, 47), (2, 1, 33), (8, 5, 63), (1, 2, 31),
-                  (2, 3, 95), (2, 3, 160))
+                  (2, 3, 95), (2, 3, 160), (1, 16, 63), (1, 56, 63))
+#: Kernel I with a long branch (up, down, taps): 15,000 taps a branch at
+#: 2/1, past the tiled route's shared memory, on the compact route.  Its
+#: f32 sums of 15,000 products cannot reach 120 dB against float64; each
+#: output is held to the bound of a recursive f32 sum instead.
+RESAMPLE_LONG_BRANCH = (2, 1, 29999)
 RESAMPLE_WIDTHS = (1, 1535, 1537, 40001)
 #: Kernel J's geometries (up, down, rs_taps, ch_taps, channels), those of
 #: tests/test_chain_fused.py:122-129, at lengths past two tiles, ragged.
 CHAIN_GEOMETRIES = ((2, 3, 63, 63, 8), (4, 3, 47, 31, 8), (2, 1, 33, 97, 8),
                     (8, 5, 63, 129, 16), (1, 2, 31, 63, 8),
                     (2, 3, 95, 63, 24))
+#: Kernel J on the compact route: 1/8 and 1/15 (the lowest rate
+#: chain_fused_supported admits at P = 1).  Their planes carry an FM
+#: signal narrowed by P/Q, so that it fits the band the chain keeps as
+#: config 5's fits its own: the bf16 bound assumes a band-limited signal,
+#: and the plain versions' bf16 and f32 chains part (16 dB at 1/8) on one
+#: wider than the band.
+CHAIN_LOW_RATES = ((1, 8, 63, 63, 8), (1, 15, 63, 63, 8))
 #: BASELINE config 5 as bench_configs.py:283-287 runs it: 16 channels ×
 #: 2,000,000 complex f32 samples from seed 5.
 CONFIG5_CHANNELS = 16
@@ -1317,15 +1332,17 @@ class FloatAgreement:
 
 
 def fm_planes(rng: np.random.Generator, channels: int, time_len: int,
-              k_f: float) -> tuple[torch.Tensor, torch.Tensor]:
+              k_f: float, band: float = 1.0) -> tuple[torch.Tensor,
+                                                      torch.Tensor]:
     """FM-modulated I/Q planes on the card, with the band-limited message
     of tests/test_demod_chain.py:198-203 (white noise low-passed at 0.05,
-    scaled to a peak of 1), which its bf16 bound assumes."""
+    scaled to a peak of 1), which its bf16 bound assumes; ``band`` scales
+    the message's cutoff and the deviation ``k_f``."""
     msg = fir1d_ideal_rows_torch(torch.from_numpy(rng.standard_normal(
         (channels, time_len)).astype(np.float32)).cuda(),
-        design_lowpass(63, 0.05))
+        design_lowpass(63, 0.05 * band))
     msg = (msg / msg.abs().max()).cpu().numpy()
-    re, im = fm_modulate(msg, k_f)
+    re, im = fm_modulate(msg, k_f * band)
     return (torch.from_numpy(re.astype(np.float32)).cuda(),
             torch.from_numpy(im.astype(np.float32)).cuda())
 
@@ -1362,13 +1379,16 @@ def check_chain_kernels(agree: dict, fm: tuple) -> None:
             agree["resample"].check(resample(x, rs), resample_plain(x, rs),
                                     f"resample {up}/{down} L={num_taps} "
                                     f"N={n}", 120.0)
-    for up, down, rs_taps, ch_taps, channels in CHAIN_GEOMETRIES:
-        cfg = chain_config(up, down, rs_taps, ch_taps)
-        re, im = fm_planes(rng, channels, 3 * 1024 * down // up + 333,
-                           cfg.demod_k_f)
-        check_chain_modes(agree, re, im, cfg,
-                          f"chain {up}/{down} {rs_taps}+{ch_taps} "
-                          f"C={channels}")
+    check_long_branch(gen)
+    for geometries, narrow in ((CHAIN_GEOMETRIES, False),
+                               (CHAIN_LOW_RATES, True)):
+        for up, down, rs_taps, ch_taps, channels in geometries:
+            cfg = chain_config(up, down, rs_taps, ch_taps)
+            re, im = fm_planes(rng, channels, 3 * 1024 * down // up + 333,
+                               cfg.demod_k_f, up / down if narrow else 1.0)
+            check_chain_modes(agree, re, im, cfg,
+                              f"chain {up}/{down} {rs_taps}+{ch_taps} "
+                              f"C={channels}")
 
     # The main path's shapes: config 5's 32 × 2 M resample, 32 × 1.33 M
     # channelizer and 16 × 2 M chain.
@@ -1390,6 +1410,31 @@ def check_chain_kernels(agree: dict, fm: tuple) -> None:
         f"{agree[name].max_abs_err:.3g})"
         for name in ("fir_float", "resample", "chain_fused",
                      "chain_fused_bf16", "chain_fused_bf16_own")), flush=True)
+
+
+def check_long_branch(gen: torch.Generator) -> None:
+    """Kernel I at RESAMPLE_LONG_BRANCH, each output within the bound of
+    a recursive f32 sum of J products with one rounding each, J u / (1 -
+    J u) times the sum of their magnitudes (u = 2^-24), against float64."""
+    up, down, num_taps = RESAMPLE_LONG_BRANCH
+    h = design_lowpass(num_taps, 0.9 / max(up, down), gain=up)
+    rs = PolyphaseResampler(h, up, down, "cuda")
+    rs_abs = PolyphaseResampler(np.abs(h), up, down, "cuda")
+    u = 2.0 ** -24
+    gamma = rs.branch_len * u / (1 - rs.branch_len * u)
+    for n in RESAMPLE_WIDTHS:
+        x = torch.randn((ROWS, n), device="cuda", generator=gen)
+        want, got = resample_plain(x, rs), resample(x, rs)
+        err = (got.to(torch.float64) - want).abs()
+        bound = gamma * resample_plain(x.abs(), rs_abs)
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"resample {up}/{down} L={num_taps} N={n}: "
+                                 "past the f32 summation bound")
+        print(f"[chip_smoke] resample {up}/{down} L={num_taps} N={n}: SNR "
+              f"{snr_on_card(want, got):.1f} dB, max |diff| "
+              f"{float(err.max()):.3g}, at most "
+              f"{float((err / bound.clamp_min(1e-300)).max()):.3g} of the "
+              "bound", flush=True)
 
 
 def check_chain_modes(agree: dict, re: torch.Tensor, im: torch.Tensor,
@@ -1480,8 +1525,10 @@ def time_chain(card: str, fm: tuple) -> dict:
     32 × 2 M planes, kernel H on the 32 × 1,333,334 resampled planes, the
     demod, kernel J on 16 × 2 M in both modes, their plain versions,
     ``F.conv1d`` of the channelizer's taps (TF32 off: the same f32
-    function as kernel H), both chains end to end through
-    ``chain_forward`` and a ``copy_`` of the stacked input."""
+    function as kernel H), kernel I's function through ``F.conv1d`` (P
+    output channels at stride Q, interleaved; TF32 off), both chains end
+    to end through ``chain_forward`` and a ``copy_`` of the stacked
+    input."""
     cfg = ChainConfig()
     re, im = fm
     x = torch.cat([re, im], dim=0)
@@ -1505,6 +1552,13 @@ def time_chain(card: str, fm: tuple) -> dict:
         raise AssertionError(f"F.conv1d is not the channelizer's function "
                              f"(SNR {conv_snr:.1f} dB against kernel H's "
                              "plain version)")
+    rs_weight, rs_pad = conv1d_resampler(rs)
+    rs_conv_snr = snr_on_card(resample_plain(x[:2], rs),
+                              conv1d_resample(x[:2], rs_weight, rs_pad, rs))
+    if not rs_conv_snr >= 100.0:
+        raise AssertionError(f"the F.conv1d resampler is not kernel I's "
+                             f"function (SNR {rs_conv_snr:.1f} dB against "
+                             "its plain version)")
     copy_dst = torch.empty_like(x)
     staged_cfg = dataclasses.replace(cfg, channelizer_backend="mxu")
     runs = {
@@ -1514,6 +1568,7 @@ def time_chain(card: str, fm: tuple) -> dict:
         "chain_fused": lambda: chain_fused(re, im, chain),
         "chain_fused_bf16": lambda: chain_fused(re_bf16, im_bf16, chain_bf16),
         "conv1d": lambda: F.conv1d(both.unsqueeze(1), weight, padding=left),
+        "resample_conv1d": lambda: conv1d_resample(x, rs_weight, rs_pad, rs),
         "copy": lambda: copy_dst.copy_(x),
     }
     med = median_ms(runs, CHAIN_TIMING_REPS, CHAIN_TIMING_LAUNCHES)
@@ -1536,6 +1591,7 @@ def time_chain(card: str, fm: tuple) -> dict:
               flush=True)
     result = {run: m for run, (m, _, _) in med.items()}
     result["conv1d_snr_db"] = conv_snr
+    result["resample_conv1d_snr_db"] = rs_conv_snr
     # Work of each timed call, for its bound.
     branch_nnz = (rs.taps != 0).sum(dim=1).cpu().numpy()
     _, branch, _, _ = _plan(CONFIG5_TIME, 2, 3, h_rs.size)
@@ -2162,7 +2218,7 @@ def main() -> int:
             ("fir_float", "fir_float.cu", "fir_float_mxu.py:106",
              "fir_float_plain", "conv1d"),
             ("resample", "resample.cu", "resample_mxu.py:96",
-             "resample_plain", None),
+             "resample_plain", "resample_conv1d"),
             ("chain_fused", "chain_fused.cu", "chain_fused.py:133",
              "chain_fused_plain", None)):
         kernels.append({
@@ -2175,6 +2231,10 @@ def main() -> int:
             "ms": times_chain[name], "plain_ms": times_chain[plain],
             **bounded(name),
             "library_ms": times_chain[library] if library else None})
+    kernels[-2].update({
+        "library_call": "F.pad, F.conv1d (P output channels at stride Q, "
+                        "TF32 off), interleave",
+        "library_snr_db": times_chain["resample_conv1d_snr_db"]})
     kernels[-1].update({
         "ms_bf16": times_chain["chain_fused_bf16"],
         "bound_ms_bf16": bounds["chain_fused_bf16"]["bound_ms"],

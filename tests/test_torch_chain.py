@@ -323,12 +323,14 @@ def test_demod_matches_golden_and_jax(rng):
 
 _HARNESS = r"""
 #include <cstdint>
+#include <cstring>
 #include <vector>
 
 #include "wft_chain.cuh"
 
 using wft::kChainThreads;
 using wft::kChainTile;
+using wft::kTileR;
 
 extern "C" void fir_float_host(const void* x, int x_is_u8, float* y,
                                long long rows, long long n, const float* h,
@@ -354,74 +356,165 @@ extern "C" void fir_float_host(const void* x, int x_is_u8, float* y,
   }
 }
 
-extern "C" void resample_host(const float* x, float* y, long long rows,
-                              long long n, long long out_len,
-                              const float* taps, int up, int down,
-                              int center, int len, int stride) {
+// The per-thread core of down-rate q's route on one window, and poly_dot
+// for each of its outputs a + q u: the tiled core's group of kTileR outputs
+// where q has one, else the compact route's poly_dot4 over four.  Returns
+// the outputs written.
+extern "C" int core_dot_host(const float* w, int a, int q, const float* taps,
+                             int len, float* got, float* want) {
+  const int count = wft::with_core(
+      q <= wft::kMaxTiledDown ? q : 0, [&](auto core) {
+        constexpr int Q = decltype(core)::value;
+        if constexpr (Q > 0) {
+          const wft::TapLayout l = wft::tap_layout(Q, len);
+          std::vector<float> table(l.row);
+          wft::stage_taps(taps, 1, len, len, l, table.data(), 0, 1);
+          float acc[kTileR];
+          wft::group_dot<Q>(w, a, table.data(), len, l, acc);
+          std::memcpy(got, acc, sizeof acc);
+          return kTileR;
+        } else {
+          float acc[wft::kChainPerThread];
+          wft::poly_dot4(w, a, q, taps, len, acc);
+          std::memcpy(got, acc, sizeof acc);
+          return wft::kChainPerThread;
+        }
+      });
+  for (int u = 0; u < count; ++u) want[u] = wft::poly_dot(w, a + q * u, taps, len);
+  return count;
+}
+
+// The route of kernel I (kind 0) or J (kind 1) for a shape: its core and
+// *bytes of shared memory, as the launches pick them.
+extern "C" int route_host(int kind, int up, int down, int center, int len,
+                          int stride, int ch_len, long long* bytes) {
   const wft::PolyPlan p{up, down, center, len, stride};
-  std::vector<float> w(wft::resample_window(p));
+  wft::ChainPlan c;
+  c.rs = p;
+  c.ch_taps = ch_len;
+  const wft::Route r = kind ? wft::chain_route(c) : wft::resample_route(p);
+  *bytes = r.shared_bytes;
+  return r.core;
+}
+
+// Kernel I's CTAs in order, each stage a loop over the threads.  The tiled
+// route: three CTAs, each walking every third item of the (rows, tiles)
+// grid, as the card's CTAs walk theirs.
+template <int Q>
+void resample_rows(const float* x, float* y, long long rows, long long n,
+                   long long out_len, const float* taps,
+                   const wft::PolyPlan& p) {
+  const wft::ResampleLayout l = wft::resample_layout(p);
+  std::vector<float> smem(l.total);
+  float* ys = smem.data() + l.out_at;
+  for (int t = 0; t < kChainThreads; ++t) {
+    wft::stage_taps(taps, p.up, p.tap_stride, p.len, l.taps, smem.data(), t,
+                    kChainThreads);
+  }
+  const long long tiles =
+      (out_len + wft::kResampleTile - 1) / wft::kResampleTile;
+  const long long ctas = rows * tiles < 3 ? rows * tiles : 3;
+  for (long long b = 0; b < ctas; ++b) {
+    wft::TileWalk item = wft::walk_start(b, tiles);
+    for (int t = 0; t < kChainThreads; ++t) {
+      wft::resample_prefetch(x, n, p, item, smem.data() + l.stage_at, l.stage,
+                             t, kChainThreads);
+    }
+    for (int k = 0; item.row < rows; ++k) {
+      const wft::TileWalk next = wft::walk_next(item, ctas, tiles);
+      if (next.row < rows) {
+        for (int t = 0; t < kChainThreads; ++t) {
+          wft::resample_prefetch(
+              x, n, p, next, smem.data() + l.stage_at + ((k + 1) & 1) * l.stage,
+              l.stage, t, kChainThreads);
+        }
+      }
+      const long long m0 = item.tile * wft::kResampleTile;
+      const wft::PolyRun r = wft::poly_run(m0, p);
+      const int count = static_cast<int>(
+          out_len - m0 < wft::kResampleTile ? out_len - m0
+                                            : wft::kResampleTile);
+      for (int t = 0; t < kChainThreads; ++t) {
+        float acc[kTileR];
+        wft::resample_thread<Q>(smem.data() + l.stage_at + (k & 1) * l.stage,
+                                wft::run_x0(r, p), smem.data(), l, p, r, t,
+                                acc);
+        wft::resample_put(acc, p, r, t, ys);
+      }
+      for (int t = 0; t < kChainThreads; ++t) {
+        wft::store_run(ys, y + item.row * out_len + m0, count, t,
+                       kChainThreads);
+      }
+      item = next;
+    }
+  }
+}
+
+// The compact route: CTA (row, m0) after CTA.
+template <>
+void resample_rows<0>(const float* x, float* y, long long rows, long long n,
+                      long long out_len, const float* taps,
+                      const wft::PolyPlan& p) {
+  std::vector<float> w(wft::resample_compact_window(p));
   const int width = static_cast<int>(w.size());
   for (long long row = 0; row < rows; ++row) {
     for (long long m0 = 0; m0 < out_len; m0 += kChainTile) {
       for (int t = 0; t < kChainThreads; ++t) {
-        wft::stage_window(x + row * n, n, wft::resample_base(m0, p), w.data(),
-                          width, t, kChainThreads);
+        wft::stage_window(x + row * n, n, wft::resample_compact_base(m0, p),
+                          w.data(), width, t, kChainThreads);
       }
       for (int t = 0; t < kChainThreads; ++t) {
-        wft::resample_thread(w.data(), taps, p, t, y + row * out_len,
-                             out_len, m0);
+        wft::resample_compact_thread(w.data(), taps, p, t, y + row * out_len,
+                                     out_len, m0);
       }
     }
   }
 }
 
-template <typename T>
-void chain_cta(const T* re, const T* im, const wft::ChainPlan& c,
-               long long row, long long n, long long m0, float* xs,
-               float* rs, float* ch, const float* rs_taps,
-               const float* ch_taps, float* y, long long out_len) {
-  const int in_w = wft::chain_in_window(c);
-  const int rs_n = wft::chain_rs_count(c);
-  const long long in0 = wft::chain_in_base(m0, c);
-  for (int t = 0; t < kChainThreads; ++t) {
-    for (int plane = 0; plane < 2; ++plane) {
-      wft::stage_window((plane ? im : re) + row * n, n, in0, xs + plane * in_w,
-                        in_w, t, kChainThreads);
-    }
+// Kernel I on the host by the route the launch picks; returns its core.
+extern "C" int resample_host(const float* x, float* y, long long rows,
+                             long long n, long long out_len,
+                             const float* taps, int up, int down,
+                             int center, int len, int stride) {
+  const wft::PolyPlan p{up, down, center, len, stride};
+  const wft::Route route = wft::resample_route(p);
+  if (route.core < 0) return route.core;
+  wft::with_core(route.core, [&](auto core) {
+    resample_rows<decltype(core)::value>(x, y, rows, n, out_len, taps, p);
+  });
+  return route.core;
+}
+
+// Output m of one row by poly_dot over the zero-extended row.
+float resample_ref(const float* x, long long n, long long m,
+                   const float* taps, const wft::PolyPlan& p,
+                   std::vector<float>& w) {
+  const long long b = wft::poly_anchor(m, p);
+  w.resize(p.len);
+  for (int j = 0; j < p.len; ++j) {
+    const long long i = b - (p.len - 1) + j;
+    w[j] = (i >= 0 && i < n) ? x[i] : 0.0f;
   }
-  for (int t = 0; t < kChainThreads; ++t) {
-    for (int plane = 0; plane < 2; ++plane) {
-      wft::chain_resample_thread(xs + plane * in_w, rs_taps, c, t,
-                                 rs + plane * rs_n, m0);
+  return wft::poly_dot(w.data(), p.len - 1,
+                       taps + wft::poly_branch(m, p) * p.tap_stride, p.len);
+}
+
+extern "C" void resample_ref_host(const float* x, float* y, long long rows,
+                                  long long n, long long out_len,
+                                  const float* taps, int up, int down,
+                                  int center, int len, int stride) {
+  const wft::PolyPlan p{up, down, center, len, stride};
+  std::vector<float> w;
+  for (long long row = 0; row < rows; ++row) {
+    for (long long m = 0; m < out_len; ++m) {
+      y[row * out_len + m] = resample_ref(x + row * n, n, m, taps, p, w);
     }
-  }
-  for (int t = 0; t < kChainThreads; ++t) {
-    for (int plane = 0; plane < 2; ++plane) {
-      wft::chain_channelize_thread(rs + plane * rs_n, ch_taps, c, t,
-                                   ch + plane * (kChainTile + 1));
-    }
-  }
-  for (int t = 0; t < kChainThreads; ++t) {
-    wft::chain_demod_thread(ch, ch + kChainTile + 1, c, t, y + row * out_len,
-                            out_len, m0);
   }
 }
 
-extern "C" void demod_host(const float* ch_re, const float* ch_im, float* y,
-                           long long m0, float inv_gain) {
-  wft::ChainPlan c;
-  c.inv_gain = inv_gain;
-  for (int t = 0; t < kChainThreads; ++t) {
-    wft::chain_demod_thread(ch_re, ch_im, c, t, y, m0 + kChainTile, m0);
-  }
-}
-
-extern "C" void chain_host(const void* re, const void* im, int bf16,
-                           float* y, long long channels, long long n,
-                           long long out_len, const float* rs_taps, int up,
-                           int down, int center, int len, int stride,
-                           const float* ch_taps, int ch_len, long long lo,
-                           long long hi, float inv_gain) {
+wft::ChainPlan chain_plan(int up, int down, int center, int len, int stride,
+                          int ch_len, long long lo, long long hi,
+                          float inv_gain, int bf16) {
   wft::ChainPlan c;
   c.rs = wft::PolyPlan{up, down, center, len, stride};
   c.ch_taps = ch_len;
@@ -429,20 +522,210 @@ extern "C" void chain_host(const void* re, const void* im, int bf16,
   c.hi = hi;
   c.inv_gain = inv_gain;
   c.bf16 = bf16 != 0;
-  std::vector<float> xs(2 * wft::chain_in_window(c));
-  std::vector<float> rs(2 * wft::chain_rs_count(c));
-  std::vector<float> ch(2 * (kChainTile + 1));
+  return c;
+}
+
+// Kernel J's CTAs in order, each stage a loop over the threads.  The tiled
+// route: three CTAs, each walking every third item (channel, tile), as the
+// card's CTAs walk theirs.
+template <typename T, int Q>
+void chain_rows(const T* re, const T* im, float* y, long long channels,
+                long long n, long long out_len, const float* rs_taps,
+                const float* ch_taps, const wft::ChainPlan& c) {
+  const wft::ChainLayout l = wft::chain_layout(c);
+  std::vector<float> smem(l.total);
+  float* rs = smem.data() + l.rs_at;
+  for (int t = 0; t < kChainThreads; ++t) {
+    wft::stage_taps(rs_taps, c.rs.up, c.rs.tap_stride, c.rs.len, l.rs_taps,
+                    smem.data(), t, kChainThreads);
+    wft::stage_taps(ch_taps, 1, c.ch_taps, c.ch_taps, l.ch_taps,
+                    smem.data() + l.ch_taps_at, t, kChainThreads);
+  }
+  const long long tiles = (out_len + c.tile - 1) / c.tile;
+  const long long ctas = channels * tiles < 3 ? channels * tiles : 3;
+  for (long long b = 0; b < ctas; ++b) {
+    wft::TileWalk item = wft::walk_start(b, tiles);
+    for (int t = 0; t < kChainThreads; ++t) {
+      wft::chain_prefetch(re, im, n, c, l, item, 0, smem.data(), t,
+                          kChainThreads);
+    }
+    for (int k = 0; item.row < channels; ++k) {
+      const wft::TileWalk next = wft::walk_next(item, ctas, tiles);
+      if (next.row < channels) {
+        for (int t = 0; t < kChainThreads; ++t) {
+          wft::chain_prefetch(re, im, n, c, l, next, k + 1, smem.data(), t,
+                              kChainThreads);
+        }
+      }
+      if (c.bf16) {
+        for (int t = 0; t < kChainThreads; ++t) {
+          wft::chain_widen(smem.data(), l, c, k, t, kChainThreads);
+        }
+      }
+      float* windows = wft::chain_windows(smem.data(), l, c, k);
+      const long long m0 = item.tile * c.tile;
+      const wft::PolyRun r = wft::chain_run(m0, c);
+      for (int t = 0; t < kChainThreads; ++t) {
+        wft::chain_resample_thread<Q>(smem.data(), windows, l, c, r,
+                                      wft::run_x0(r, c.rs), t, kChainThreads,
+                                      rs, m0);
+      }
+      for (int t = 0; t < kChainThreads; ++t) {
+        wft::chain_channelize_thread(smem.data(), rs, l, c, t, kChainThreads,
+                                     windows);
+      }
+      for (int t = 0; t < kChainThreads; ++t) {
+        wft::chain_demod_thread(windows, windows + l.plane, c, t,
+                                kChainThreads, rs, m0);
+      }
+      for (int t = 0; t < kChainThreads; ++t) {
+        wft::store_run(rs, y + item.row * out_len + m0,
+                       static_cast<int>(out_len - m0 < c.tile ? out_len - m0
+                                                              : c.tile),
+                       t, kChainThreads);
+      }
+      item = next;
+    }
+  }
+}
+
+// The compact route: CTA (channel, m0) after CTA.
+template <typename T>
+void chain_compact_rows(const T* re, const T* im, float* y,
+                        long long channels, long long n, long long out_len,
+                        const float* rs_taps, const float* ch_taps,
+                        const wft::ChainPlan& c) {
+  const int in_w = static_cast<int>(wft::chain_compact_window(c));
+  std::vector<float> xs(2 * in_w), rs(2 * c.rs_count),
+      ch(2 * (kChainTile + 1));
   for (long long row = 0; row < channels; ++row) {
     for (long long m0 = 0; m0 < out_len; m0 += kChainTile) {
-      if (c.bf16) {
-        chain_cta(static_cast<const uint16_t*>(re),
-                  static_cast<const uint16_t*>(im), c, row, n, m0, xs.data(),
-                  rs.data(), ch.data(), rs_taps, ch_taps, y, out_len);
-      } else {
-        chain_cta(static_cast<const float*>(re), static_cast<const float*>(im),
-                  c, row, n, m0, xs.data(), rs.data(), ch.data(), rs_taps,
-                  ch_taps, y, out_len);
+      const long long in0 = wft::chain_compact_base(m0, c);
+      for (int t = 0; t < kChainThreads; ++t) {
+        for (int plane = 0; plane < 2; ++plane) {
+          wft::stage_window((plane ? im : re) + row * n, n, in0,
+                            xs.data() + plane * in_w, in_w, t, kChainThreads);
+        }
       }
+      for (int t = 0; t < kChainThreads; ++t) {
+        for (int plane = 0; plane < 2; ++plane) {
+          wft::chain_compact_resample(xs.data() + plane * in_w, rs_taps, c, t,
+                                      rs.data() + plane * c.rs_count, m0);
+        }
+      }
+      for (int t = 0; t < kChainThreads; ++t) {
+        for (int plane = 0; plane < 2; ++plane) {
+          wft::chain_compact_channelize(rs.data() + plane * c.rs_count,
+                                        ch_taps, c, t,
+                                        ch.data() + plane * (kChainTile + 1));
+        }
+      }
+      for (int t = 0; t < kChainThreads; ++t) {
+        wft::chain_compact_demod(ch.data(), ch.data() + kChainTile + 1, c, t,
+                                 y + row * out_len, out_len, m0);
+      }
+    }
+  }
+}
+
+template <typename T>
+void chain_by_route(const void* re, const void* im, float* y,
+                    long long channels, long long n, long long out_len,
+                    const float* rs_taps, const float* ch_taps,
+                    const wft::ChainPlan& c, int core) {
+  const T* r = static_cast<const T*>(re);
+  const T* i = static_cast<const T*>(im);
+  wft::with_core(core, [&](auto q) {
+    constexpr int Q = decltype(q)::value;
+    if constexpr (Q > 0) {
+      chain_rows<T, Q>(r, i, y, channels, n, out_len, rs_taps, ch_taps, c);
+    } else {
+      chain_compact_rows<T>(r, i, y, channels, n, out_len, rs_taps, ch_taps,
+                            c);
+    }
+  });
+}
+
+extern "C" void demod_host(const float* ch_re, const float* ch_im, float* y,
+                           long long m0, float inv_gain) {
+  wft::ChainPlan c;
+  c.inv_gain = inv_gain;
+  c.tile = kChainTile;
+  std::vector<float> out(kChainTile);
+  for (int t = 0; t < kChainThreads; ++t) {
+    wft::chain_demod_thread(ch_re, ch_im, c, t, kChainThreads, out.data(), m0);
+  }
+  std::memcpy(y + m0, out.data(), kChainTile * sizeof(float));
+}
+
+// Kernel J on the host by the route the launch picks; returns its core.
+extern "C" int chain_host(const void* re, const void* im, int bf16,
+                          float* y, long long channels, long long n,
+                          long long out_len, const float* rs_taps, int up,
+                          int down, int center, int len, int stride,
+                          const float* ch_taps, int ch_len, long long lo,
+                          long long hi, float inv_gain) {
+  wft::ChainPlan c = chain_plan(up, down, center, len, stride, ch_len, lo, hi,
+                                inv_gain, bf16);
+  const wft::Route route = wft::chain_route(c);
+  if (route.core < 0) return route.core;
+  if (c.bf16) {
+    chain_by_route<uint16_t>(re, im, y, channels, n, out_len, rs_taps,
+                             ch_taps, c, route.core);
+  } else {
+    chain_by_route<float>(re, im, y, channels, n, out_len, rs_taps, ch_taps,
+                          c, route.core);
+  }
+  return route.core;
+}
+
+// The chain of one row by poly_dot, stage after stage over the whole row:
+// the resampled samples -1 - left .. out_len - 1 + center, the channelized
+// samples -1 .. out_len - 1, the messages.
+template <typename T>
+void chain_ref_row(const T* re, const T* im, float* y, long long n,
+                   long long out_len, const float* rs_taps,
+                   const float* ch_taps, const wft::ChainPlan& c) {
+  const long long qa = -1 - wft::chain_ch_left(c);
+  const long long count = out_len + c.ch_taps;
+  std::vector<float> rs[2], ch[2], x(n), w;
+  for (int plane = 0; plane < 2; ++plane) {
+    for (long long i = 0; i < n; ++i) x[i] = wft::sample_f32(plane ? im : re, i);
+    rs[plane].resize(count);
+    for (long long k = 0; k < count; ++k) {
+      const float v = resample_ref(x.data(), n, qa + k, rs_taps, c.rs, w);
+      rs[plane][k] = wft::chain_rs_value(v, qa + k, c);
+    }
+    ch[plane].resize(out_len + 1);
+    for (long long m = -1; m < out_len; ++m) {
+      ch[plane][m + 1] = wft::poly_dot(rs[plane].data(),
+                                       static_cast<int>(m + c.ch_taps - 1 - wft::chain_ch_left(c) - qa),
+                                       ch_taps, c.ch_taps);
+    }
+  }
+  for (long long m = 0; m < out_len; ++m) {
+    y[m] = wft::fm_message(ch[0][m + 1], ch[1][m + 1], ch[0][m], ch[1][m], m,
+                           c.inv_gain);
+  }
+}
+
+extern "C" void chain_ref_host(const void* re, const void* im, int bf16,
+                               float* y, long long channels, long long n,
+                               long long out_len, const float* rs_taps, int up,
+                               int down, int center, int len, int stride,
+                               const float* ch_taps, int ch_len, long long lo,
+                               long long hi, float inv_gain) {
+  const wft::ChainPlan c = chain_plan(up, down, center, len, stride, ch_len,
+                                      lo, hi, inv_gain, bf16);
+  for (long long row = 0; row < channels; ++row) {
+    if (c.bf16) {
+      chain_ref_row(static_cast<const uint16_t*>(re) + row * n,
+                    static_cast<const uint16_t*>(im) + row * n,
+                    y + row * out_len, n, out_len, rs_taps, ch_taps, c);
+    } else {
+      chain_ref_row(static_cast<const float*>(re) + row * n,
+                    static_cast<const float*>(im) + row * n,
+                    y + row * out_len, n, out_len, rs_taps, ch_taps, c);
     }
   }
 }
@@ -466,6 +749,11 @@ def cores(tmp_path_factory):
                                   i32]
     lib.chain_host.argtypes = [vp, vp, i32, vp, ll, ll, ll, vp, i32, i32, i32,
                                i32, i32, vp, i32, ll, ll, ctypes.c_float]
+    lib.chain_ref_host.argtypes = lib.chain_host.argtypes
+    lib.resample_ref_host.argtypes = lib.resample_host.argtypes
+    lib.core_dot_host.argtypes = [vp, i32, i32, vp, i32, vp, vp]
+    lib.route_host.argtypes = [i32, i32, i32, i32, i32, i32, i32,
+                               ctypes.POINTER(ll)]
     lib.demod_host.argtypes = [vp, vp, vp, ll, ctypes.c_float]
     return lib
 
@@ -483,19 +771,33 @@ def _run_fir(lib, x: np.ndarray, fir) -> np.ndarray:
     return y
 
 
-def _run_resample(lib, x: np.ndarray, rs) -> np.ndarray:
+def _route(lib, rs, ch_taps=None) -> int:
+    """The core of the route kernel I (kernel J with a channelizer of
+    ``ch_taps``) takes for the resampler ``rs``: Q for a tiled core, 0 for
+    the compact route."""
+    bytes_ = ctypes.c_longlong()
+    return lib.route_host(int(ch_taps is not None), rs.up, rs.down, rs.center,
+                          rs.branch_len, rs.tap_stride, ch_taps or 0,
+                          ctypes.byref(bytes_))
+
+
+def _run_resample(lib, x: np.ndarray, rs, ref=False) -> np.ndarray:
+    """Kernel I's CTAs on the host by the launch's route; with ``ref``,
+    every output by ``poly_dot`` over the zero-extended row."""
     x = np.ascontiguousarray(x, np.float32)
     out_len = rs.out_len(x.shape[1])
-    y = np.empty((x.shape[0], out_len), np.float32)
+    y = np.full((x.shape[0], out_len), np.nan, np.float32)
     taps = _np(rs.taps)
-    lib.resample_host(x.ctypes.data, y.ctypes.data, x.shape[0], x.shape[1],
+    (lib.resample_ref_host if ref else lib.resample_host)(x.ctypes.data, y.ctypes.data, x.shape[0], x.shape[1],
                       out_len, taps.ctypes.data, rs.up, rs.down, rs.center,
                       rs.branch_len, rs.tap_stride)
     return y
 
 
 def _run_chain(lib, re: np.ndarray, im: np.ndarray, chain,
-               rs_bounds=None) -> np.ndarray:
+               rs_bounds=None, ref=False) -> np.ndarray:
+    """Kernel J's CTAs on the host by the launch's route; with ``ref``, the
+    chain of each row stage by stage through ``poly_dot``."""
     if chain.bf16:
         re, im = (_np(torch.from_numpy(p).to(torch.bfloat16)
                       .view(torch.int16)).view(np.uint16) for p in (re, im))
@@ -505,12 +807,195 @@ def _run_chain(lib, re: np.ndarray, im: np.ndarray, chain,
     lo, hi = (0, out_len) if rs_bounds is None else rs_bounds
     y = np.full((re.shape[0], out_len), np.nan, np.float32)
     rs_taps, ch_taps = _np(rs.taps), _np(fir.taps)
-    lib.chain_host(re.ctypes.data, im.ctypes.data, int(chain.bf16),
+    (lib.chain_ref_host if ref else lib.chain_host)(
+                   re.ctypes.data, im.ctypes.data, int(chain.bf16),
                    y.ctypes.data, re.shape[0], re.shape[1], out_len,
                    rs_taps.ctypes.data, rs.up, rs.down, rs.center,
                    rs.branch_len, rs.tap_stride, ch_taps.ctypes.data,
                    fir.num_taps, lo, hi, chain.inv_gain)
     return y
+
+
+#: Down-rates of the tiled core: P/Q 1/1, 3/2, 2/3, 1/4 and 4/5 (the
+#: compiled cores), and 2/9 (the compact route's poly_dot4).
+TILED_DOWN = [1, 2, 3, 4, 5, 9]
+
+
+@pytest.mark.parametrize("down", TILED_DOWN)
+def test_tiled_core_equals_poly_dot(cores, rng, down):
+    """Each of a group's nine outputs (the compact route's four) equals
+    ``poly_dot`` on the same window bit for bit: branch lengths 1, 31, 32
+    and 129 and channelizer lengths 1, 2, 63 and 257 (whole groups of the
+    window's width and ragged tails), at random anchors, with samples and
+    taps of mixed scales."""
+    for length in (1, 2, 31, 32, 63, 129, 257):
+        width = length + down * (wft_tile_r() - 1) + 5
+        for _ in range(3):
+            w = (rng.standard_normal(width)
+                 * 10.0 ** rng.integers(-3, 4, width)).astype(np.float32)
+            taps = rng.standard_normal(length).astype(np.float32)
+            a = int(rng.integers(length - 1, width - down * 8))
+            got = np.full(9, np.nan, np.float32)
+            want = np.full(9, np.nan, np.float32)
+            count = cores.core_dot_host(w.ctypes.data, a, down,
+                                        taps.ctypes.data, length,
+                                        got.ctypes.data, want.ctypes.data)
+            assert count == (9 if down <= 5 else 4)
+            assert np.isfinite(want[:count]).all()
+            np.testing.assert_array_equal(got, want, err_msg=f"{length}")
+
+
+def wft_tile_r() -> int:
+    """Outputs a group of the tiled cores (``kTileR``)."""
+    return 9
+
+
+def _width_for(out_len: int, up: int, down: int) -> int:
+    """An input width whose ``ceil(n P / Q)`` is ``out_len`` where one is."""
+    guess = max(1, out_len * down // up)
+    for n in range(max(1, guess - 3), guess + 4):
+        if -(-n * up // down) == out_len:
+            return n
+    return guess
+
+
+#: P/Q with P | 256, as kernel I takes them: tiled cores, and on the
+#: compact route 2/9, 1/16 and 1/56 (past the tiled cores).
+RESAMPLE_EXACT_RATES = [(1, 1), (2, 3), (4, 5), (1, 4), (8, 5), (128, 3),
+                        (2, 9), (1, 16), (1, 56)]
+
+
+@pytest.mark.parametrize("up,down", RESAMPLE_EXACT_RATES)
+def test_resample_core_equals_poly_dot(cores, rng, up, down):
+    """Kernel I's CTAs, bit for bit against ``poly_dot`` per output: branch
+    lengths 1, 31, 32 and 129; outputs 1, 8 and 10 (a group and one either
+    side), ragged, and past one and two 2,304-output tiles, so that groups
+    straddle a tile's end (the compact route's 1,024-output tiles too)."""
+    for branch in (1, 31, 32, 129):
+        h = rng.standard_normal(up * branch - (up > 1)).astype(np.float32)
+        rs = rs_kernel.PolyphaseResampler(h, up, down)
+        for out_len in (1, 8, 10, 777, 2309, 4700):
+            x = rng.standard_normal((2, _width_for(out_len, up, down)))
+            got = _run_resample(cores, x, rs)
+            assert np.isfinite(got).all()
+            np.testing.assert_array_equal(got, _run_resample(cores, x, rs,
+                                                             ref=True))
+
+
+#: (up, down, rs_taps, ch_taps, precision, rs_bounds offsets or None).
+#: 2/9, 1/8 and the 20,001-tap 2/1 take the compact route.
+CHAIN_EXACT_CASES = [
+    (2, 3, 63, 63, "highest", None),
+    (2, 3, 63, 63, "bf16", None),
+    (2, 3, 63, 63, "highest", (37, -50)),
+    (2, 3, 63, 63, "bf16", (-300, 200)),
+    (2, 3, 63, 63, "highest", (2500, -2600)),
+    (4, 3, 47, 31, "highest", None),
+    (2, 1, 33, 97, "bf16", None),
+    (8, 5, 63, 129, "highest", None),
+    (1, 2, 31, 63, "highest", None),
+    (2, 3, 95, 257, "highest", None),
+    (4, 5, 63, 2, "highest", None),
+    (1, 4, 31, 1, "bf16", None),
+    (1, 1, 1, 63, "highest", None),
+    (2, 9, 63, 63, "highest", (11, -7)),
+    (1, 3, 63, 63, "highest", None),
+    (1, 8, 63, 63, "highest", None),
+    (1, 8, 63, 63, "bf16", (37, -50)),
+    (2, 1, 20001, 63, "highest", None),
+]
+
+
+@pytest.mark.parametrize("case", CHAIN_EXACT_CASES, ids=str)
+def test_chain_core_equals_poly_dot(cores, rng, case):
+    """Kernel J's CTAs, bit for bit against the chain computed stage by
+    stage with ``poly_dot`` over whole rows: the resampled stream zeroed
+    outside ``rs_bounds`` (and rounded to bf16 in "bf16" mode), the
+    channelizer, the discriminator.  Lengths run past two tiles."""
+    up, down, rs_taps, ch_taps, precision, bounds = case
+    cfg = _config(up, down, rs_taps, ch_taps)
+    # A one-tap design is 0/0 (design_lowpass's window): one tap of 0.8.
+    h_rs = cfg.resample_filter() if rs_taps > 1 else np.array([0.8])
+    h_ch = cfg.channelizer_filter() if ch_taps > 1 else np.array([0.8])
+    chain = chain_fused.FusedChain(h_rs, h_ch, up, down, cfg.demod_k_f,
+                                   precision=precision)
+    out_len = 2 * (2304 - ch_taps) + 333
+    re, im = _fm(rng, 2, _width_for(out_len, up, down))
+    out_len = chain.resampler.out_len(re.shape[1])
+    rs_bounds = None if bounds is None else (bounds[0], out_len + bounds[1])
+    got = _run_chain(cores, re, im, chain, rs_bounds)
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(
+        got, _run_chain(cores, re, im, chain, rs_bounds, ref=True))
+
+
+#: Long branches at Q = 1 (J = 20,000 and 15,000), whose tiled tap table
+#: and windows would not fit 227 KB.
+LONG_BRANCHES = [(1, 1, 20000), (2, 1, 15000)]
+
+
+@pytest.mark.parametrize("up,down,branch", LONG_BRANCHES)
+def test_resample_long_branch_takes_compact_route(cores, rng, up, down,
+                                                  branch):
+    """Bit for bit against ``poly_dot`` per output, on the compact route."""
+    h = rng.standard_normal(up * branch - (up > 1)).astype(np.float32)
+    rs = rs_kernel.PolyphaseResampler(h, up, down)
+    assert _route(cores, rs) == 0
+    x = rng.standard_normal((2, _width_for(2309, up, down)))
+    got = _run_resample(cores, x, rs)
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got, _run_resample(cores, x, rs, ref=True))
+
+
+def _first_form_bytes(up, down, center, branch, ch_taps=None) -> int:
+    """Shared memory of kernel I's (with ``ch_taps``, kernel J's) first
+    form, computed here from its layout: the taps as given, one input window
+    a plane for 1,024 outputs, and for J 1,024 + Lc resampled and 1,025
+    channelized samples a plane."""
+    def anchor(m):
+        return (m * down + center) // up
+
+    if ch_taps is None:
+        return 4 * (up * branch + anchor(1023) - anchor(0) + branch)
+    q0 = -1 - (ch_taps - 1 - ch_taps // 2)
+    window = anchor(q0 + 1024 + ch_taps - 1) - anchor(q0) + branch
+    return 4 * (up * branch + ch_taps + 2 * window + 2 * (1024 + ch_taps)
+                + 2 * 1025)
+
+
+def test_routes_take_every_shape_the_first_form_took(cores):
+    """Over P | 256, Q from 1 to 4,096, branches of 1 to 29,000 taps and
+    channelizers of 1 to 17,000: every shape whose first-form kernel fitted
+    227 KB has a route, a tiled one only for Q <= 5, and the compact route
+    in the first form's bytes."""
+    limit = 227 * 1024
+    seen = {"tiled": 0, "compact": 0}
+    for up in (1, 2, 4, 8, 32, 128, 256):
+        for down in (1, 2, 3, 4, 5, 6, 8, 9, 16, 56, 57, 255, 4096):
+            for branch in (1, 9, 32, 129, 500, 2000, 7000, 20000, 29000):
+                center = up * branch // 2
+                for ch_taps in (None, 1, 63, 257, 4097, 17000):
+                    want = _first_form_bytes(up, down, center, branch,
+                                             ch_taps)
+                    got = ctypes.c_longlong()
+                    core = cores.route_host(
+                        int(ch_taps is not None), up, down, center, branch,
+                        branch, ch_taps or 0, ctypes.byref(got))
+                    shape = (up, down, branch, ch_taps, core, got.value, want)
+                    if core > 0:
+                        assert core == down <= 5, shape
+                        assert got.value <= limit, shape
+                        seen["tiled"] += 1
+                    elif core == 0:
+                        assert got.value == want <= limit, shape
+                        seen["compact"] += 1
+                    else:
+                        assert want > limit, shape
+    assert min(seen.values()) > 100, seen
+    cfg = ChainConfig()
+    rs = rs_kernel.PolyphaseResampler(cfg.resample_filter(), 2, 3)
+    assert _route(cores, rs) == 3
+    assert _route(cores, rs, cfg.channelizer_taps) == 3
 
 
 @pytest.mark.parametrize("num_taps", [1, 2, 5, 63, 64, 257])

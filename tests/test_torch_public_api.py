@@ -155,3 +155,160 @@ def test_window_rows_pallas_equals_jax(rng, channels, total, sub, g):
     want = np.asarray(jax_window_copy.window_rows_pallas(x, carry, sub, g,
                                                          interpret=True))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _snr_above(bound):
+    def compare(got, want):
+        from warmup_fir_filter_tpu_torch.ops.fftfilt import snr_db
+
+        assert snr_db(np.asarray(want, np.float64), got) > bound
+    return compare
+
+
+def _close(rtol, atol):
+    def compare(got, want):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=rtol, atol=atol)
+    return compare
+
+
+def _u8_within_one(got, want):
+    assert np.abs(got.astype(np.int32) - np.asarray(want, np.int32)).max() <= 1
+
+
+def _fused_seg_tiles() -> int:
+    """The smallest superblock the JAX fused kernel takes at 2/3 x 63 taps
+    (a smaller superblock keeps interpret mode quick; the function is the
+    same)."""
+    from warmup_fir_filter_tpu.kernels import chain_fused as jax_fused
+
+    h = np.zeros(63)
+    h[31] = 1.0
+    _, k_rows, ds, beta0, count = jax_fused.build_resample_band(h, 2, 3)
+    for seg in (8, 16, 32, 64):
+        if (seg * ds) % 128 == 0 and jax_fused._halo_tiles_for(
+                ds, beta0 - (count - 1), k_rows, seg * ds // 128):
+            return seg
+    raise AssertionError("no superblock fits")
+
+
+def _host_array_cases():
+    """(name, port call, JAX call, comparison at the JAX tests' bound) for
+    every float entry that takes samples; each call takes a tuple of numpy
+    arrays."""
+    from warmup_fir_filter_tpu.kernels import chain_fused as jax_fused
+    from warmup_fir_filter_tpu.kernels import fft_pallas as jax_fft
+    from warmup_fir_filter_tpu.kernels import fir_float_mxu as jax_ff
+    from warmup_fir_filter_tpu.models import chain as jax_chain
+    from warmup_fir_filter_tpu.ops import demod as jax_demod
+    from warmup_fir_filter_tpu.ops import fftfilt as jax_fftfilt
+    from warmup_fir_filter_tpu.ops import resample as jax_resample
+    from warmup_fir_filter_tpu_torch.kernels import chain_fused, fft, fir_float
+    from warmup_fir_filter_tpu_torch.kernels import resample as port_rs
+    from warmup_fir_filter_tpu_torch.models import chain as port_chain
+    from warmup_fir_filter_tpu_torch.ops import demod, fftfilt
+    from warmup_fir_filter_tpu_torch.ops import resample as port_resample
+
+    cfg = port_chain.ChainConfig()
+    h_rs, h_ch = cfg.resample_filter(), cfg.channelizer_filter()
+    h_rs_up = design_lowpass(63, 0.3, gain=2)
+    h63 = design_lowpass(63, 0.25)
+    k_f = cfg.demod_k_f
+    seg = _fused_seg_tiles()
+    return [
+        ("chain_forward", "fm",
+         lambda re, im: port_chain.chain_forward(re, im, cfg),
+         lambda re, im: jax_chain.chain_forward(re, im,
+                                                jax_chain.ChainConfig()),
+         _snr_above(90.0)),
+        ("chain_forward_fused", "fm",
+         lambda re, im: chain_fused.chain_forward_fused(
+             re, im, h_rs, h_ch, 2, 3, k_f, precision="highest"),
+         lambda re, im: jax_fused.chain_forward_fused(
+             re, im, h_rs, h_ch, 2, 3, k_f, precision="highest",
+             seg_tiles=seg),
+         _snr_above(95.0)),
+        ("resample_poly", "rows",
+         lambda x: port_resample.resample_poly(x, h_rs_up, 2, 3),
+         lambda x: jax_resample.resample_poly(x, h_rs_up, 2, 3),
+         _close(1e-5, 1e-5)),
+        ("resample_poly_band", "rows",
+         lambda x: port_rs.resample_poly_band(x, h_rs_up, 2, 3,
+                                              precision="highest"),
+         lambda x: resample_mxu_highest(x, h_rs_up),
+         _close(1e-6, 1e-3)),
+        ("resample_poly_mxu", "rows",
+         lambda x: port_rs.resample_poly_mxu(x, h_rs_up, 2, 3),
+         lambda x: jax_resample_mxu.resample_poly_mxu(x, h_rs_up, 2, 3),
+         _close(1e-4, 0.02)),
+        ("fm_demodulate", "fm",
+         lambda re, im: demod.fm_demodulate(re, im, k_f),
+         lambda re, im: jax_demod.fm_demodulate(re, im, k_f),
+         _close(0.0, 1e-5)),
+        ("fir1d_ideal_rows_band", "rows",
+         lambda x: fir_float.fir1d_ideal_rows_band(x, h63,
+                                                   precision="highest"),
+         lambda x: jax_ff.fir1d_ideal_rows_mxu(x, h63, precision="highest"),
+         _close(1e-5, 1e-5)),
+        ("fir1d_ideal_rows_mxu", "rows",
+         lambda x: fir_float.fir1d_ideal_rows_mxu(x, h63),
+         lambda x: jax_ff.fir1d_ideal_rows_mxu(x, h63, block_rows=8),
+         _close(1e-4, 1e-4)),
+        ("fir_overlap_save", "u8",
+         lambda x: fftfilt.fir_overlap_save(x, h63),
+         lambda x: jax_fftfilt.fir_overlap_save(x, h63),
+         _snr_above(100.0)),
+        ("fft_rows_pallas", "fft",
+         lambda x: np.stack([t.numpy() for t in fft.fft_rows_pallas(x)]),
+         lambda x: np.stack([np.asarray(t)
+                             for t in jax_fft.fft_rows_pallas(x)]),
+         _snr_above(90.0)),
+        ("fir_overlap_save_pallas", "u8",
+         lambda x: fft.fir_overlap_save_pallas(x, h63),
+         lambda x: jax_fft.fir_overlap_save_pallas(x, h63),
+         _snr_above(80.0)),
+        ("fir_overlap_save_quantized_pallas", "u8",
+         lambda x: fft.fir_overlap_save_quantized_pallas(x, h63),
+         lambda x: jax_fft.fir_overlap_save_quantized_pallas(x, h63),
+         _u8_within_one),
+        ("fir_overlap_save_stream", "rows",
+         lambda x: fft.fir_overlap_save_stream(x, h63),
+         lambda x: jax_fft.fir_overlap_save_stream(x, h63, r_windows=2),
+         _snr_above(90.0)),
+    ]
+
+
+def resample_mxu_highest(x, h):
+    return jax_resample_mxu.resample_poly_mxu(x, h, 2, 3, precision="highest")
+
+
+HOST_ARRAY_ENTRIES = [case[0] for case in _host_array_cases()]
+
+
+def _host_inputs(kind: str, rng) -> tuple:
+    if kind == "fm":
+        from warmup_fir_filter_tpu_torch.ops import demod
+
+        seg = _fused_seg_tiles()
+        msg = rng.standard_normal((8, 2 * seg * 192 + 333)) * 0.3
+        return tuple(p.astype(np.float32) for p in demod.fm_modulate(msg, 0.05))
+    if kind == "u8":
+        return (rng.integers(0, 256, size=(2, 1500), dtype=np.uint8),)
+    if kind == "fft":
+        return (rng.standard_normal((5, 512)).astype(np.float32),)
+    return (rng.standard_normal((3, 3000)).astype(np.float32),)
+
+
+@pytest.mark.parametrize("name", HOST_ARRAY_ENTRIES)
+def test_host_arrays_go_to_the_card(rng, name):
+    """Given numpy arrays, each entry puts them on the card: without CUDA it
+    raises with ``resolve_device``'s message and runs nothing on the host.
+    The same data as CPU tensors gives the JAX function's result within the
+    bound its tests use."""
+    _, kind, port, jax_fn, compare = next(
+        case for case in _host_array_cases() if case[0] == name)
+    arrays = _host_inputs(kind, rng)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        port(*arrays)
+    got = port(*(torch.from_numpy(a) for a in arrays))
+    got = got if isinstance(got, np.ndarray) else got.numpy()
+    compare(got, np.asarray(jax_fn(*arrays)))

@@ -167,3 +167,22 @@ def test_cpu_tensor_launches_no_kernel(rng):
     x = torch.from_numpy(rng.standard_normal((2, 300)).astype(np.float32))
     port_resample.resample_poly(x, [0.5, 1.0, 0.5], 2, 3, precision="highest")
     assert port_kernel.resample.launches == before
+
+
+@pytest.mark.parametrize("up,down", RATES + [(4, 5), (1, 4), (128, 3)])
+def test_conv1d_yardstick_is_kernel_i_function(rng, up, down):
+    """``yardsticks.py``'s ``F.conv1d`` yardstick for kernel I (P output
+    channels at stride Q, interleaved) computes ``resample_plain``'s
+    function: f32 against float64, SNR >= 120 dB, at ragged lengths."""
+    from warmup_fir_filter_tpu_torch.ops.fftfilt import snr_db
+    from yardsticks import conv1d_resample, conv1d_resampler
+
+    h = port_resample.design_lowpass(63, 0.9 / max(up, down), gain=up)
+    rs = port_kernel.PolyphaseResampler(h, up, down)
+    weight, pad = conv1d_resampler(rs)
+    for n in (1, 5, 700, 3001):
+        x = torch.from_numpy(rng.standard_normal((2, n)).astype(np.float32))
+        got = conv1d_resample(x, weight, pad, rs)
+        want = port_kernel.resample_plain(x, rs)
+        assert got.shape == want.shape
+        assert snr_db(want.numpy(), got.numpy()) >= 120.0, n

@@ -26,6 +26,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent
@@ -253,6 +254,20 @@ def resolve_device(device: str | torch.device) -> torch.device:
             "to run the plain versions on the host."
         )
     return device
+
+
+def as_rows(x, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """An entry point's samples as a tensor, cast to ``dtype`` where given.
+
+    A torch tensor keeps its device: a CPU tensor runs the plain versions.
+    Anything else (a numpy array, a list) goes to the card, through
+    :func:`resolve_device`, which raises without CUDA and names
+    ``device="cpu"``: no entry runs a host array on the host unasked, as
+    the JAX functions put one on their accelerator.
+    """
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x), device=resolve_device("cuda"))
+    return x if dtype is None else x.to(dtype)
 
 
 def check_rows(x: torch.Tensor, dtypes: tuple[torch.dtype, ...]) -> None:

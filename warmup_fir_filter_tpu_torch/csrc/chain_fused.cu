@@ -7,16 +7,16 @@
 // (:133; entry chain_forward_fused :416, gate chain_fused_supported :394).
 // As there, the resampled and channelized intermediates never reach device
 // memory: the input is read once and the messages written once.  A CTA
-// computes 1,024 messages of one channel, in four stages separated by
-// barriers (wft_chain.cuh):
+// computes tile = 2,304 - Lc messages of one channel (2,241 at 63 taps), in
+// four stages separated by barriers (wft_chain.cuh):
 //   0  stage the I and Q input windows and the taps in shared memory,
-//   1  resample the 1,024 + Lc samples the channelizer reads, both planes,
-//      and zero those outside [lo, hi): the staged path zero-pads the
+//   1  resample the tile + Lc = 2,304 samples the channelizer reads, both
+//      planes, and zero those outside [lo, hi): the staged path zero-pads the
 //      resampled stream, and the values computed just outside [0, out_len)
 //      from the zero-padded input are not zero (chain_fused.py:246-265);
 //      the time-sharded chain passes its global window as [lo, hi),
-//   2  channelize 1,025 samples a plane: one to the left of the tile, since
-//      each message needs the previous channelized sample (:281-307),
+//   2  channelize tile + 1 samples a plane: one to the left of the tile,
+//      since each message needs the previous channelized sample (:281-307),
 //   3  the discriminator, atan2(cross, dot) / (2 pi k_f), 0 at output 0
 //      (:319-323).
 // The TPU kernel computes atan2 with a polynomial (atan2_poly, :95-130)
@@ -30,10 +30,43 @@
 // 2 x 16 x 2 M samples reads 256 MB and writes 85 MB for about 4.1 G FMAs
 // (32 resample and 63 channelizer taps per sample of each plane), so f32
 // issue (0.12 ms at 67 TFLOP/s) and memory (0.1 ms at 3.35 TB/s) bound it
-// about equally.  This simple form is bound by shared-memory bandwidth,
-// about 1.25 loads per FMA, and recomputes Lc / 1,024 of the resampled
-// samples at the tile seams; tensor cores for the two band stages are the
-// next step.
+// about equally.  The first form gave each thread four outputs 256 apart:
+// 1.25 shared loads an FMA, 2.25 wavefronts an FMA in stage 1 (its window
+// loads 2-way conflicted), so shared-memory issue bounded it at about 8x
+// its bound (0.96 ms), and it recomputed Lc / 1,024 of the resampled
+// samples at the tile seams.
+//
+// The design: both band stages run on the tiled cores (wft_chain.cuh,
+// group_dot).  A thread computes a group of 9 outputs of one tap row: in
+// stage 1 outputs P apart of one branch, whose anchors step by Q, from a
+// register window of Q * 8 + 1 input samples; in stage 2 nine consecutive
+// channelized samples from a window of 9.  Each window slides down one
+// sample a tap, so a tap is one window load and a quarter of a float4 tap
+// load for 9 FMAs (about one LDS to five FFMA in the SASS at Q = 3, no
+// spills); lanes'
+// windows start 9 or 9 Q samples apart (odd at Q = 3), so their loads fall
+// in distinct banks.  Index arithmetic is 32-bit shifts from each CTA's
+// run (P is a power of two).  A tile is 2,304 resampled samples a plane,
+// so Lc / tile of them are recomputed (2.8% at 63 taps).  As many CTAs as
+// the card holds at once each walk work items (channel, tile), staging the
+// next item's I/Q windows by cp.async (raw bf16 in "bf16" mode, widened
+// once it lands) while they compute the current one; the channelized runs
+// reuse the consumed windows and the messages the resampled runs, 75 KB a
+// CTA at config 5.
+//
+// Q up to 5 has a compiled stage-1 core.  A shape with a larger Q (1/8),
+// or whose tiled layout would not fit 227 KB (a branch of about 7,000 taps
+// or more at 2/1), takes the compact route (wft_chain.cuh): the kernel's
+// first form, 1,024 messages a CTA,
+// four a thread 256 apart through poly_dot4 in stages 1 and 2, over windows
+// staged once per channel.  It needs the least shared memory of any route,
+// so every shape the first form took still launches.
+//
+// Where the time goes now (ablations on an H100 80GB HBM3 at 700 W,
+// recorded in PERF.md): of 0.37 ms at config 5, stage 1 about 0.11 (its 9-output groups spend half their
+// instructions around the FMAs of a 32-tap branch), stage 2 about 0.14,
+// the discriminator about 0.07 (atan2f 0.02 of it), the staging and the
+// barriers the rest: a card's issue slots, not its memory, bound it.
 
 #include <climits>
 #include <cstdint>
@@ -41,38 +74,85 @@
 #include <cuda_runtime.h>
 
 #include "wft_chain.cuh"
+#include "wft_resident.cuh"
 
 namespace {
 
 constexpr int kMaxGridY = 65535;
-constexpr int kDefaultSharedBytes = 48 * 1024;
-constexpr int kMaxSharedBytes = 227 * 1024;
 
-// Shared floats: rs taps, channelizer taps, 2 input windows, 2 resampled
-// runs, 2 channelized runs.
-size_t chain_shared_floats(const wft::ChainPlan& c) {
-  return static_cast<size_t>(c.rs.up) * c.rs.tap_stride + c.ch_taps +
-         2 * static_cast<size_t>(wft::chain_in_window(c)) +
-         2 * static_cast<size_t>(wft::chain_rs_count(c)) +
-         2 * static_cast<size_t>(wft::kChainTile + 1);
-}
-
-template <typename T>
+// The tiled route: CTA b of gridDim.x walks the items (channel, tile) b,
+// b + gridDim.x, ..., staging the next item's windows while it computes
+// this one's.
+template <typename T, int Q>
 __global__ void __launch_bounds__(wft::kChainThreads)
 chain_fused_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
                    float* __restrict__ y,
                    long long channels, long long n, long long out_len,
                    const float* __restrict__ rs_taps,
-                   const float* __restrict__ ch_taps, wft::ChainPlan c) {
+                   const float* __restrict__ ch_taps, wft::ChainPlan c,
+                   wft::ChainLayout l) {
+  extern __shared__ __align__(16) float smem[];
+  float* rs = smem + l.rs_at;  // [2][rs_plane]
+  const int t = threadIdx.x;
+  const long long tiles = (out_len + c.tile - 1) / c.tile;
+  wft::stage_taps(rs_taps, c.rs.up, c.rs.tap_stride, c.rs.len, l.rs_taps,
+                  smem, t, wft::kChainThreads);
+  wft::stage_taps(ch_taps, 1, c.ch_taps, c.ch_taps, l.ch_taps,
+                  smem + l.ch_taps_at, t, wft::kChainThreads);
+  wft::TileWalk item = wft::walk_start(blockIdx.x, tiles);
+  wft::chain_prefetch(x_re, x_im, n, c, l, item, 0, smem, t,
+                      wft::kChainThreads);
+  wft::async_commit();
+  for (int k = 0; item.row < channels; ++k) {
+    wft::async_wait<0>();
+    __syncthreads();  // item k is staged; item k - 1 is done with its planes
+    const wft::TileWalk next = wft::walk_next(item, gridDim.x, tiles);
+    if (next.row < channels) {
+      wft::chain_prefetch(x_re, x_im, n, c, l, next, k + 1, smem, t,
+                          wft::kChainThreads);
+    }
+    wft::async_commit();
+    if (c.bf16) {
+      wft::chain_widen(smem, l, c, k, t, wft::kChainThreads);
+      __syncthreads();
+    }
+    float* windows = wft::chain_windows(smem, l, c, k);
+    const long long m0 = item.tile * c.tile;
+    const wft::PolyRun r = wft::chain_run(m0, c);
+    wft::chain_resample_thread<Q>(smem, windows, l, c, r, wft::run_x0(r, c.rs),
+                                  t, wft::kChainThreads, rs, m0);
+    __syncthreads();
+    wft::chain_channelize_thread(smem, rs, l, c, t, wft::kChainThreads,
+                                 windows);
+    __syncthreads();
+    wft::chain_demod_thread(windows, windows + l.plane, c, t,
+                            wft::kChainThreads, rs, m0);
+    __syncthreads();
+    wft::store_run(rs, y + item.row * out_len + m0,
+                   static_cast<int>(out_len - m0 < c.tile ? out_len - m0
+                                                          : c.tile),
+                   t, wft::kChainThreads);
+    item = next;
+  }
+}
+
+// The compact route: CTA (tile, channel) for channels blockIdx.y +
+// k gridDim.y.
+template <typename T>
+__global__ void __launch_bounds__(wft::kChainThreads)
+chain_compact_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
+                     float* __restrict__ y,
+                     long long channels, long long n, long long out_len,
+                     const float* __restrict__ rs_taps,
+                     const float* __restrict__ ch_taps, wft::ChainPlan c) {
   extern __shared__ float smem[];
   const int rs_tap_floats = c.rs.up * c.rs.tap_stride;
-  const int in_w = wft::chain_in_window(c);
-  const int rs_n = wft::chain_rs_count(c);
+  const int in_w = static_cast<int>(wft::chain_compact_window(c));
   float* rs_taps_s = smem;
   float* ch_taps_s = rs_taps_s + rs_tap_floats;
-  float* xs = ch_taps_s + c.ch_taps;   // [2][in_w]
-  float* rs = xs + 2 * in_w;           // [2][rs_n]
-  float* ch = rs + 2 * rs_n;           // [2][kChainTile + 1]
+  float* xs = ch_taps_s + c.ch_taps;  // [2][in_w]
+  float* rs = xs + 2 * in_w;          // [2][rs_count]
+  float* ch = rs + 2 * c.rs_count;    // [2][kChainTile + 1]
   const int t = threadIdx.x;
   const long long m0 = static_cast<long long>(blockIdx.x) * wft::kChainTile;
   for (int k = t; k < rs_tap_floats; k += wft::kChainThreads) {
@@ -81,27 +161,67 @@ chain_fused_kernel(const T* __restrict__ x_re, const T* __restrict__ x_im,
   for (int k = t; k < c.ch_taps; k += wft::kChainThreads) {
     ch_taps_s[k] = ch_taps[k];
   }
-  const long long in0 = wft::chain_in_base(m0, c);
-  for (long long ch_row = blockIdx.y; ch_row < channels; ch_row += gridDim.y) {
+  const long long in0 = wft::chain_compact_base(m0, c);
+  for (long long row = blockIdx.y; row < channels; row += gridDim.y) {
     __syncthreads();  // the previous channel's windows are consumed
     for (int plane = 0; plane < 2; ++plane) {
-      wft::stage_window((plane ? x_im : x_re) + ch_row * n, n, in0,
+      wft::stage_window((plane ? x_im : x_re) + row * n, n, in0,
                         xs + plane * in_w, in_w, t, wft::kChainThreads);
     }
     __syncthreads();
     for (int plane = 0; plane < 2; ++plane) {
-      wft::chain_resample_thread(xs + plane * in_w, rs_taps_s, c, t,
-                                 rs + plane * rs_n, m0);
+      wft::chain_compact_resample(xs + plane * in_w, rs_taps_s, c, t,
+                                  rs + plane * c.rs_count, m0);
     }
     __syncthreads();
     for (int plane = 0; plane < 2; ++plane) {
-      wft::chain_channelize_thread(rs + plane * rs_n, ch_taps_s, c, t,
-                                   ch + plane * (wft::kChainTile + 1));
+      wft::chain_compact_channelize(rs + plane * c.rs_count, ch_taps_s, c, t,
+                                    ch + plane * (wft::kChainTile + 1));
     }
     __syncthreads();
-    wft::chain_demod_thread(ch, ch + wft::kChainTile + 1, c, t,
-                            y + ch_row * out_len, out_len, m0);
+    wft::chain_compact_demod(ch, ch + wft::kChainTile + 1, c, t,
+                             y + row * out_len, out_len, m0);
   }
+}
+
+template <typename T, int Q>
+int launch(const void* x_re, const void* x_im, void* y, long long channels,
+           long long n, long long out_len, const void* rs_taps,
+           const void* ch_taps, const wft::ChainPlan& c, size_t shared_bytes,
+           cudaStream_t stream) {
+  static wft::ResidentCache cache;
+  long long resident = 0;
+  const T* re = static_cast<const T*>(x_re);
+  const T* im = static_cast<const T*>(x_im);
+  float* yf = static_cast<float*>(y);
+  const float* rs_t = static_cast<const float*>(rs_taps);
+  const float* ch_t = static_cast<const float*>(ch_taps);
+  if constexpr (Q > 0) {
+    const cudaError_t err =
+        wft::resident_ctas(chain_fused_kernel<T, Q>, wft::kChainThreads,
+                           shared_bytes, cache, &resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long items = channels * ((out_len + c.tile - 1) / c.tile);
+    const long long ctas = items < resident ? items : resident;
+    chain_fused_kernel<T, Q><<<static_cast<unsigned>(ctas > 0 ? ctas : 1),
+                               wft::kChainThreads, shared_bytes, stream>>>(
+        re, im, yf, channels, n, out_len, rs_t, ch_t, c,
+        wft::chain_layout(c));
+  } else {
+    const long long tiles = (out_len + wft::kChainTile - 1) / wft::kChainTile;
+    if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err =
+        wft::resident_ctas(chain_compact_kernel<T>, wft::kChainThreads,
+                           shared_bytes, cache, &resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(static_cast<unsigned>(tiles),
+                    static_cast<unsigned>(channels < kMaxGridY ? channels
+                                                               : kMaxGridY));
+    chain_compact_kernel<T><<<grid, wft::kChainThreads, shared_bytes,
+                              stream>>>(re, im, yf, channels, n, out_len,
+                                        rs_t, ch_t, c);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -129,41 +249,15 @@ extern "C" int wft_chain_fused(const void* x_re, const void* x_im, void* y,
   c.hi = hi;
   c.inv_gain = inv_gain;
   c.bf16 = bf16 != 0;
-  const size_t shared_bytes = 4 * chain_shared_floats(c);
-  const long long tiles = (out_len + wft::kChainTile - 1) / wft::kChainTile;
-  if (tiles > INT_MAX || shared_bytes > kMaxSharedBytes) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid(static_cast<unsigned>(tiles),
-                  static_cast<unsigned>(channels < kMaxGridY ? channels
-                                                             : kMaxGridY));
+  const wft::Route route = wft::chain_route(c);
+  if (route.core < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t shared_bytes = static_cast<size_t>(route.shared_bytes);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c.bf16) {
-    if (shared_bytes > kDefaultSharedBytes) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          chain_fused_kernel<uint16_t>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(shared_bytes));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    chain_fused_kernel<uint16_t><<<grid, wft::kChainThreads, shared_bytes, s>>>(
-        static_cast<const uint16_t*>(x_re), static_cast<const uint16_t*>(x_im),
-        static_cast<float*>(y), channels, n,
-        out_len, static_cast<const float*>(rs_taps),
-        static_cast<const float*>(ch_taps), c);
-  } else {
-    if (shared_bytes > kDefaultSharedBytes) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          chain_fused_kernel<float>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(shared_bytes));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    chain_fused_kernel<float><<<grid, wft::kChainThreads, shared_bytes, s>>>(
-        static_cast<const float*>(x_re), static_cast<const float*>(x_im),
-        static_cast<float*>(y), channels, n,
-        out_len, static_cast<const float*>(rs_taps),
-        static_cast<const float*>(ch_taps), c);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return wft::with_core(route.core, [&](auto q) {
+    constexpr int Q = decltype(q)::value;
+    return c.bf16 ? launch<uint16_t, Q>(x_re, x_im, y, channels, n, out_len,
+                                        rs_taps, ch_taps, c, shared_bytes, s)
+                  : launch<float, Q>(x_re, x_im, y, channels, n, out_len,
+                                     rs_taps, ch_taps, c, shared_bytes, s);
+  });
 }

@@ -23,6 +23,15 @@ TPU knobs ``seg_tiles``, ``opt`` and ``fold``), and
 so that ``models/chain.py`` takes the same path as the JAX package does on
 its accelerator.
 
+The kernel (``csrc/chain_fused.cu``) runs both band stages on the tiled
+cores of ``csrc/wft_chain.cuh``: nine outputs of one tap row a thread from
+a register window that slides down one sample a tap, f32 FMAs in
+ascending tap order; a CTA stages the next work item's I/Q windows by
+``cp.async`` while it computes the current one.  :class:`FusedChain` makes
+every operand once; a launch reads nothing from the device.  Host arrays
+given to :func:`chain_forward_fused` go to the card
+(``_build.as_rows``).
+
 Precision: ``"bf16x3"`` and ``"highest"`` are plain f32 FMAs on the card.
 ``"bf16"`` is the storage mode: bf16 I/Q in, bf16-rounded taps, each
 resampled sample rounded to bf16 before the channelizer, f32 sums.
@@ -231,8 +240,10 @@ def chain_forward_fused(
 
     Drop-in for the staged ``models.chain.chain_forward`` composition
     (``resample_poly`` → ``fir1d_ideal_rows_band`` → ``fm_demodulate``)
-    when ``chain_fused_supported`` holds; raises otherwise.
+    when ``chain_fused_supported`` holds; raises otherwise.  Tensors stay on
+    their device; host arrays go to the card (``_build.as_rows``).
     """
+    re, im = _build.as_rows(re), _build.as_rows(im)
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
     if k_f <= 0:

@@ -546,9 +546,11 @@ def fft_rows_pallas(xr, xi=None, *,
     ``xi=None`` means real input (forward only — an inverse needs a full
     spectrum).  ``inverse`` computes the scaled inverse transform.
     Returns natural-order ``(re, im)`` f32 planes, matching
-    ``torch.fft.fft`` / ``torch.fft.ifft`` up to f32 rounding.
+    ``torch.fft.fft`` / ``torch.fft.ifft`` up to f32 rounding.  A host
+    array ``xr`` goes to the card (``_build.as_rows``); ``xi`` follows
+    ``xr``'s device.
     """
-    xr = torch.as_tensor(xr).to(torch.float32).contiguous()
+    xr = _build.as_rows(xr, torch.float32).contiguous()
     if xr.dim() != 2:
         raise ValueError(f"expected (B, nfft) rows, got {tuple(xr.shape)}")
     factor_nfft(xr.shape[1])
@@ -593,8 +595,10 @@ def fir_overlap_save_pallas(x: torch.Tensor, h, *,
 
     Drop-in for :func:`ops.fftfilt.fir_overlap_save` (same alignment
     contract).  With nfft automatic and :func:`stream_kernel_supported`,
-    kernel M straight off the stream; otherwise the framed kernel L.
+    kernel M straight off the stream; otherwise the framed kernel L.  A
+    host array goes to the card (``_build.as_rows``).
     """
+    x = _build.as_rows(x)
     h64 = np.asarray(h, np.float64)
     num_taps = int(h64.size)
     auto_nfft = nfft is None
@@ -603,8 +607,7 @@ def fir_overlap_save_pallas(x: torch.Tensor, h, *,
     factor_nfft(nfft)
     if auto_nfft and stream_kernel_supported(num_taps):
         return fir_overlap_save_stream(x, h64)
-    return _framed(torch.as_tensor(x).to(torch.float32), h64, nfft,
-                   out_u8=False)
+    return _framed(x.to(torch.float32), h64, nfft, out_u8=False)
 
 
 def fir_overlap_save_quantized_pallas(x_u8: torch.Tensor, h, qformat=None, *,
@@ -615,7 +618,8 @@ def fir_overlap_save_quantized_pallas(x_u8: torch.Tensor, h, qformat=None, *,
 
     Mirrors :func:`ops.fftfilt.fir_overlap_save_quantized`: comparable to
     the bit-exact sim within the SNR bound.  uint8 in, uint8 out, no float
-    plane in device memory: kernel M, or the framed kernel L.
+    plane in device memory: kernel M, or the framed kernel L.  A host array
+    goes to the card (``_build.as_rows``).
     """
     qformat = QFormat() if qformat is None else qformat
     h_fixed = qformat.quantize_coeffs(np.asarray(h)).astype(np.float64)
@@ -624,7 +628,7 @@ def fir_overlap_save_quantized_pallas(x_u8: torch.Tensor, h, qformat=None, *,
     auto_nfft = nfft is None
     nfft = pick_nfft(num_taps) if nfft is None else nfft
     _check_nfft_for_taps(nfft, num_taps)
-    x_u8 = torch.as_tensor(x_u8).to(torch.uint8)
+    x_u8 = _build.as_rows(x_u8, torch.uint8)
     if auto_nfft and stream_kernel_supported(num_taps):
         return fir_overlap_save_stream(x_u8, h_real, out_u8=True)
     return _framed(x_u8, h_real, nfft, out_u8=True)
@@ -642,7 +646,8 @@ def fir_overlap_save_stream(
 
     ``out[q] = same_mode_fir(x, h)[q + off]`` for ``q < out_len``
     (default ``x.shape[1] - off``), zero-pad semantics outside the input.
-    No framing, padding or slicing pass touches device memory.
+    No framing, padding or slicing pass touches device memory.  A host
+    array goes to the card (``_build.as_rows``).
     """
     h64 = np.asarray(h, np.float64)
     num_taps = int(h64.size)
@@ -651,7 +656,7 @@ def fir_overlap_save_stream(
             f"stream kernel unsupported for num_taps={num_taps}, "
             f"off={off} (need L <= 257 and the d-gate, see "
             "stream_kernel_supported); use fir_overlap_save_pallas")
-    x = torch.as_tensor(x)
+    x = _build.as_rows(x)
     if x.dtype != torch.uint8:
         x = x.to(torch.float32)
     channels, tx = x.shape

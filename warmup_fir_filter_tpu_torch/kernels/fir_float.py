@@ -148,12 +148,13 @@ def fir1d_ideal_rows_band(x: torch.Tensor, h, *,
 
     Raw unclamped f32 (the ``fir_1d_ref.py:43-65`` contract); uint8 or
     float input.  Kernel H for up to 257 taps, the plain f32 shifted-MAC
-    path beyond.
+    path beyond.  A host array goes to the card (``_build.as_rows``).
     """
     if precision not in PRECISIONS:
         raise ValueError(
             f"precision must be one of {PRECISIONS}, got {precision!r}"
         )
+    x = _build.as_rows(x)
     h = np.asarray(h, dtype=np.float64)
     if h.size > MAX_TAPS:
         return fir1d_ideal_rows_torch(x, h)

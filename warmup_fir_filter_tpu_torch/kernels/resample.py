@@ -7,7 +7,10 @@ the ``ceil(T·P/Q)`` outputs.  The TPU kernels (``:96``, ``:129``,
 ``:196``) compute output tile ``t`` (128 outputs) as the input window
 starting at ``t·ds + β0 − (J−1)``, ``ds = 128·Q/P``, times the
 tile-independent band of :func:`build_resample_band`, which needs
-``P | 128``; the plain version does just that.
+``P | 128``; the plain version does just that.  The kernel walks each
+output's J taps instead: a thread computes nine outputs of one branch, P
+apart, from a register window of the input that slides down one sample a
+tap (``csrc/wft_chain.cuh``), with f32 FMAs in ascending tap order.
 
 :class:`PolyphaseResampler` holds the (P, J) branch taps for the kernel
 and the band for the plain version as buffers.  :func:`resample` launches
@@ -71,10 +74,11 @@ def build_resample_band(
 class PolyphaseResampler(nn.Module):
     """A P/Q resampler prepared for kernel I on one device.
 
-    Buffers: ``taps``, the (P, tap_stride) f32 branch taps
-    ``taps[r, j] = h[r + P·j]`` (zero past J; the stride is odd, so that
-    threads on different branches read different shared-memory banks),
-    and ``band``, :func:`build_resample_band`'s f32 band of the same taps.
+    Buffers: ``taps``, the (P, J) f32 branch taps ``taps[r, j] =
+    h[r + P·j]`` (``tap_stride`` = J; the kernel lays them out in shared
+    memory for its core itself), and ``band``,
+    :func:`build_resample_band`'s f32 band of the same taps.  Both are made
+    here, once, so that a launch reads nothing from the device.
     """
 
     def __init__(self, h, up: int, down: int,
@@ -86,7 +90,7 @@ class PolyphaseResampler(nn.Module):
             build_resample_band(h32, up, down)
         self.up, self.down = up, down
         self.center = h32.size // 2
-        self.tap_stride = self.branch_len | 1
+        self.tap_stride = self.branch_len
         table = np.zeros((up, self.tap_stride), np.float32)
         table[:, : self.branch_len] = _polyphase_taps(h32, up)
         self.register_buffer("taps", torch.as_tensor(table, device=device))
@@ -160,12 +164,14 @@ def resample_poly_band(x: torch.Tensor, h, up: int, down: int, *,
     """Float32 polyphase resampler over (C, T) rows on ``x.device``.
 
     Same rate-change contract as ``ops.resample.resample_poly``; kernel I
-    (or its plain version on a CPU tensor).  Requires ``128 % up == 0``.
+    (or its plain version on a CPU tensor; a host array goes to the card,
+    ``_build.as_rows``).  Requires ``128 % up == 0``.
     """
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
+    x = _build.as_rows(x, torch.float32)
     rs = PolyphaseResampler(h, up, down, x.device)
-    return resample(x.to(torch.float32).contiguous(), rs)
+    return resample(x.contiguous(), rs)
 
 
 def resample_poly_mxu(x: torch.Tensor, h, up: int, down: int, *,

@@ -33,6 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.kernels.chain_fused import (
     chain_forward_fused,
     chain_fused_supported,
@@ -74,7 +75,11 @@ class ChainConfig:
 
 def chain_forward(re: torch.Tensor, im: torch.Tensor,
                   config: ChainConfig = ChainConfig()) -> torch.Tensor:
-    """Run the full chain on (C, T) I/Q rows → (C, T') f32 message rows."""
+    """Run the full chain on (C, T) I/Q rows → (C, T') f32 message rows.
+
+    Tensors stay on their device; host arrays go to the card
+    (``_build.as_rows``)."""
+    re, im = _build.as_rows(re), _build.as_rows(im)
     h_rs = config.resample_filter()
     h_ch = config.channelizer_filter()
 

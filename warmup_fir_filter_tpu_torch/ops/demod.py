@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from warmup_fir_filter_tpu_torch import _build
+
 
 def fm_modulate(message: np.ndarray, k_f: float) -> tuple[np.ndarray, np.ndarray]:
     """Test-signal generator: message rows → complex baseband I/Q rows.
@@ -33,12 +35,13 @@ def fm_demodulate(re: torch.Tensor, im: torch.Tensor,
                   k_f: float) -> torch.Tensor:
     """Demodulate complex baseband rows; returns f32 message estimate rows.
 
-    First output sample of each row is 0 (no previous sample).
+    First output sample of each row is 0 (no previous sample).  Tensors
+    stay on their device; host arrays go to the card (``_build.as_rows``).
     """
     if k_f <= 0:
         raise ValueError(f"k_f={k_f} must be > 0")
-    re = re.to(torch.float32)
-    im = im.to(torch.float32)
+    re = _build.as_rows(re, torch.float32)
+    im = _build.as_rows(im, torch.float32)
     # x[n] · conj(x[n-1]) with x[-1] treated as x[0] (zero first output).
     re_prev = torch.cat([re[:, :1], re[:, :-1]], dim=1)
     im_prev = torch.cat([im[:, :1], im[:, :-1]], dim=1)

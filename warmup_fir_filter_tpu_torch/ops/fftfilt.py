@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
 
@@ -52,7 +53,11 @@ def frame_overlap(xp: torch.Tensor, nfft: int, step: int,
 
 def fir_overlap_save(x: torch.Tensor, h, *,
                      nfft: int | None = None) -> torch.Tensor:
-    """Float32 same-mode FIR via FFT overlap-save over (C, T) rows."""
+    """Float32 same-mode FIR via FFT overlap-save over (C, T) rows.
+
+    Tensors stay on their device; host arrays go to the card
+    (``_build.as_rows``)."""
+    x = _build.as_rows(x)
     h64 = np.asarray(h, np.float64)
     num_taps = int(h64.size)
     nfft = pick_nfft(num_taps) if nfft is None else nfft

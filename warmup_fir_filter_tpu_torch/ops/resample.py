@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.ops.fir1d import (
     fixed_epilogue_i32,
     require_int32_format,
@@ -210,9 +211,12 @@ def resample_poly(
     - ``"bf16x3"`` / ``"highest"``: kernel I (its plain version on a CPU
       tensor).  Both compute plain f32 FMAs on the card, which has native
       f32: the TPU's bf16 operand split has no counterpart.
+
+    A host array goes to the card (``_build.as_rows``).
     """
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
+    x = _build.as_rows(x)
     if precision == "auto":
         precision = ("highest" if x.device.type == "cuda" and 128 % up == 0
                      else "exact")

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Probe of kernels A (``fir_band``), C (``fir_window``), E (``fir2d_frame``),
-F (``fir2d_oframe``), G (``fir2d_bf16``), K (``fft_rows``), L (``osfilt``)
-and M (``osfilt_stream``) on one GPU.
+F (``fir2d_oframe``), G (``fir2d_bf16``), H (``fir_float``), I
+(``resample``), J (``chain_fused``), K (``fft_rows``), L (``osfilt``) and
+M (``osfilt_stream``) on one GPU.
 
-    python3 warmup_fir_filter_tpu_torch/probe_kernels.py check
+    python3 warmup_fir_filter_tpu_torch/probe_kernels.py check [chain]
         ``nvcc -Xptxas -v`` on ``fir_band.cu``, ``fir_window.cu``,
         ``fir2d_frame.cu``, ``fir2d_bf16.cu``, ``fft_rows.cu``,
-        ``osfilt.cu`` and ``osfilt_stream.cu`` (registers, stack and spills
-        of each kernel, and how many ``IMMA`` and ``HMMA`` instructions its
-        SASS from ``cuobjdump -sass`` holds, all seven compiles started
-        together), then kernel A against its plain
+        ``osfilt.cu``, ``osfilt_stream.cu``, ``fir_float.cu``,
+        ``resample.cu`` and ``chain_fused.cu`` (registers, stack and spills
+        of each kernel, and how many ``IMMA``, ``HMMA``, ``LDS`` and
+        ``FFMA`` instructions its SASS from ``cuobjdump -sass`` holds, all
+        compiles started together), then kernel A against its plain
         version over taps 1-257 x Q-formats x widths 1-40,000 and
         misaligned inputs (``torch.equal``), kernel C over taps 1-4,096 x
         widths 1-4,099 x rows 1-33 x Q-formats and misaligned inputs,
@@ -22,9 +24,19 @@ and M (``osfilt_stream``) on one GPU.
         within 2e-4 of ``torch.fft``), kernel L at every nfft 2-16,384 and
         kernel M over its stream cases and window-plan edges against their
         float64 plain versions (SNR >= 120 dB; u8 out within 1 on under
-        0.1%); exits 1 on a mismatch.
-    python3 warmup_fir_filter_tpu_torch/probe_kernels.py times TREE LABEL
-        CUDA-event medians (7 windows of 10 calls) of kernel A at 19,456 x
+        0.1%), kernel I over RESAMPLE_CHECK_RATES x widths 1-40,001
+        (>= 120 dB) and kernel J over CHAIN_CHECK_GEOMETRIES and
+        ``rs_bounds`` windows in "highest" (>= 95 dB) and "bf16" (> 60 dB
+        against its plain version); exits 1 on a mismatch.  With ``chain``:
+        only ``fir_float.cu``, ``resample.cu`` and ``chain_fused.cu``, and
+        only kernels I and J.
+    python3 warmup_fir_filter_tpu_torch/probe_kernels.py times TREE LABEL [chain]
+        CUDA-event medians (7 windows of 10 calls) at BASELINE config 5's
+        shapes of kernel I (32 x 2,000,000, 2/3, 63 taps) and its
+        ``F.conv1d`` yardstick, kernel H (32 x 1,333,334, 63 taps), kernel
+        J (16 x 2,000,000 I/Q) in "highest" and "bf16" and
+        ``chain_forward`` "auto" and staged "mxu", with the SHA-256 of I's
+        and J's outputs; then (unless ``chain``) kernel A at 19,456 x
         8,192 u8 for 3-257 taps and on the 5-tap stream's 4,000 x 16,256
         window rows, a ``copy_``, kernel K and ``torch.fft.fft`` at 8,192 x
         2,048, 1,024 x 16,384 and 65,536 x 256, kernel C (``fir_window``)
@@ -55,6 +67,10 @@ import subprocess
 import sys
 import time
 
+# The checkout's root, searched after any tree the probe is pointed at:
+# its yardsticks.py (no port imports) serves every tree.
+sys.path.append(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
 #: Kernel M's (C, T, L, off) in ``check``: chip_smoke.py's STREAM_FFT_CASES.
 STREAM_CASES = ((3, 2000, 63, 0), (2, 1111, 63, 31), (1, 700, 5, 0),
                 (4, 4096, 129, 64), (2, 900, 257, 128), (2, 513, 63, 62),
@@ -64,9 +80,38 @@ STREAM_CASES = ((3, 2000, 63, 0), (2, 1111, 63, 31), (1, 700, 5, 0),
                 (2, 449, 63, 0), (2, 450, 63, 0), (2, 451, 63, 0),
                 (2, 3000, 63, 31), (2, 3000, 63, 62))
 PTXAS_SOURCES = ("fir_band.cu", "fir_window.cu", "fir2d_frame.cu",
-                 "fir2d_bf16.cu", "fft_rows.cu", "osfilt.cu", "osfilt_stream.cu")
-#: The tensor-core instructions counted in each kernel's SASS.
-MMA_SASS = ("IMMA", "HMMA")
+                 "fir2d_bf16.cu", "fft_rows.cu", "osfilt.cu", "osfilt_stream.cu",
+                 "fir_float.cu", "resample.cu", "chain_fused.cu")
+CHAIN_SOURCES = ("fir_float.cu", "resample.cu", "chain_fused.cu")
+#: The instructions counted in each kernel's SASS: tensor-core products,
+#: shared-memory loads and f32 FMAs.
+SASS_OPS = ("IMMA", "HMMA", "LDS", "FFMA")
+#: Kernel I's rates in ``check`` (up, down, taps): PERF.md's and
+#: chip_smoke.py's grid, a pure upsample, 1/4, and on the compact route a
+#: rate past the compiled cores (2/9), 1/16 and 1/56.
+RESAMPLE_CHECK_RATES = ((2, 3, 63), (4, 3, 47), (2, 1, 33), (8, 5, 63),
+                        (1, 2, 31), (2, 3, 95), (2, 3, 160), (1, 1, 31),
+                        (4, 5, 63), (1, 4, 31), (128, 3, 400), (2, 9, 63),
+                        (1, 16, 63), (1, 56, 63))
+#: Kernel I with 15,000 taps a branch at 2/1 (the compact route): each
+#: output within the bound of a recursive f32 sum (chip_smoke.py's
+#: RESAMPLE_LONG_BRANCH).
+RESAMPLE_LONG_BRANCH = (2, 1, 29999)
+#: Kernel J's geometries in ``check`` (up, down, rs_taps, ch_taps, channels),
+#: 2/9 and a 10,001-tap branch at 2/1 on the compact route.
+CHAIN_CHECK_GEOMETRIES = ((2, 3, 63, 63, 16), (4, 3, 47, 31, 8),
+                          (2, 1, 33, 97, 8), (8, 5, 63, 129, 16),
+                          (1, 2, 31, 63, 8), (2, 3, 95, 257, 24),
+                          (4, 5, 63, 2, 8), (2, 9, 63, 63, 8),
+                          (1, 4, 31, 63, 8), (2, 1, 20001, 63, 8))
+#: Kernel J at 1/8 and 1/15 (the compact route) on planes whose FM signal
+#: is narrowed by P/Q to fit the band the chain keeps (chip_smoke.py's
+#: CHAIN_LOW_RATES).
+CHAIN_CHECK_LOW_RATES = ((1, 8, 63, 63, 8), (1, 15, 63, 63, 8))
+#: Kernels I and J's rates in ``times`` (up, down), 63 taps: each compiled
+#: core's Q (1-5), and rates whose shapes take the compact route.
+RATE_TIMINGS = ((2, 1), (1, 2), (2, 3), (1, 3), (1, 4), (4, 5), (1, 5),
+                (1, 8), (1, 16))
 FFT_SOURCES = ("fft_rows.cu", "osfilt.cu", "osfilt_stream.cu")
 
 
@@ -91,15 +136,18 @@ def ptxas(label: str, sources=PTXAS_SOURCES) -> int:
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for src in sources}
     def kernel_name(mangled: str) -> str:
-        """``name<template ints>`` of a mangled entry: the length-prefixed
-        part that ends in ``_kernel``, then the ints of its arguments."""
+        """``name<template arguments>`` of a mangled entry: the
+        length-prefixed part that ends in ``_kernel``, then its arguments'
+        ints and types (``f`` f32, ``t`` the bf16 bits)."""
+        types = {"f": "f32", "t": "bf16", "h": "u8"}
         for m in re.finditer(r"\d+", mangled):
             for k in range(m.start(), m.end()):  # a hash may end in digits
                 part = mangled[m.end():m.end() + int(mangled[k:m.end()])]
                 if part.endswith("_kernel"):
                     rest = mangled[m.end() + len(part):].split("EEv")[0]
-                    ints = re.findall(r"L[ib](-?\d+)E", rest)
-                    return f"{part}<{','.join(ints)}>"
+                    args = re.findall(r"L[ib](-?\d+)E|^I?([fth])(?=L|$)",
+                                      rest)
+                    return f"{part}<{','.join(a or types[b] for a, b in args)}>"
         return mangled
 
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
@@ -107,7 +155,7 @@ def ptxas(label: str, sources=PTXAS_SOURCES) -> int:
     for src, proc in procs.items():
         _, err = proc.communicate()
         obj = _build.DEFAULT_BUILD_DIR / f"ptxas_{src}.o"
-        mma = {}
+        ops = {}
         if proc.returncode == 0 and os.path.exists(cuobjdump):
             sass = subprocess.run([cuobjdump, "-sass", str(obj)],
                                   capture_output=True, text=True).stdout
@@ -116,10 +164,10 @@ def ptxas(label: str, sources=PTXAS_SOURCES) -> int:
                 m = re.search(r"Function : (\w+)", ln)
                 if m:
                     fn = kernel_name(m.group(1))
-                    mma[fn] = dict.fromkeys(MMA_SASS, 0)
+                    ops[fn] = dict.fromkeys(SASS_OPS, 0)
                 elif fn:
-                    for op in MMA_SASS:
-                        mma[fn][op] += op in ln
+                    for op in SASS_OPS:
+                        ops[fn][op] += re.search(rf"\b{op}\b", ln) is not None
         obj.unlink(missing_ok=True)
         name, rows = None, []
         for ln in err.splitlines():
@@ -137,8 +185,9 @@ def ptxas(label: str, sources=PTXAS_SOURCES) -> int:
         print(f"[{label}] ptxas {src} rc={proc.returncode}: " + " ".join(rows),
               flush=True)
         print(f"[{label}] sass {src}: " + (" ".join(
-            f"{fn}:" + ",".join(f"{op}={n}" for op, n in ops.items())
-            for fn, ops in mma.items()) or "cuobjdump not run"), flush=True)
+            f"{fn}:" + ",".join(f"{op}={n}" for op, n in counts.items() if n)
+            for fn, counts in ops.items()) or "cuobjdump not run"),
+              flush=True)
         failed += proc.returncode != 0
     print(f"[{label}] ptxas {time.perf_counter() - t0:.1f} s", flush=True)
     return failed
@@ -172,7 +221,123 @@ def snr_db(want, got) -> float:
             if noise else 999.0)
 
 
-def check() -> int:
+def fm_planes_on_card(channels: int, time_len: int, gen, k_f: float = 0.05,
+                      band: float = 1.0):
+    """FM I/Q planes made on the card, as chip_smoke.py's ``fm_planes``:
+    white noise low-passed at 0.05 and scaled to a peak of 1 (the message
+    the bf16 bound of tests/test_demod_chain.py:198-214 assumes), phase
+    ``2 pi k_f`` times its running sum in float64; ``band`` scales the
+    cutoff and ``k_f``."""
+    import math
+
+    import torch
+
+    from warmup_fir_filter_tpu_torch.ops.fir1d import fir1d_ideal_rows_torch
+    from warmup_fir_filter_tpu_torch.ops.resample import design_lowpass
+
+    msg = fir1d_ideal_rows_torch(torch.randn(
+        (channels, time_len), device="cuda", generator=gen),
+        design_lowpass(63, 0.05 * band)).double()
+    phase = torch.cumsum(msg / msg.abs().max(), dim=1) * (
+        2 * math.pi * k_f * band)
+    return torch.cos(phase).float(), torch.sin(phase).float()
+
+
+def check_chain(rng) -> int:
+    """Kernel I against ``resample_plain`` over RESAMPLE_CHECK_RATES x
+    widths 1-40,001 (SNR >= 120 dB), inputs at a 4-byte offset included,
+    and at RESAMPLE_LONG_BRANCH within the f32 summation bound; kernel J
+    against ``chain_fused_plain`` over CHAIN_CHECK_GEOMETRIES and
+    CHAIN_CHECK_LOW_RATES in "highest" (>= 95 dB, message 0 = 0) and
+    "bf16" (> 60 dB against its own plain version, > 40 against the f32
+    one without a window), and over ``rs_bounds`` windows at 2/3.  Returns
+    the failures."""
+    import numpy as np
+    import torch
+
+    from warmup_fir_filter_tpu_torch.kernels.chain_fused import (
+        FusedChain, chain_fused, chain_fused_plain)
+    from warmup_fir_filter_tpu_torch.kernels.resample import (
+        PolyphaseResampler, resample, resample_plain)
+    from warmup_fir_filter_tpu_torch.models.chain import ChainConfig
+    from warmup_fir_filter_tpu_torch.ops.resample import design_lowpass
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    fails, worst_i, count_i = 0, 999.0, 0
+    for up, down, taps in RESAMPLE_CHECK_RATES:
+        rs = PolyphaseResampler(design_lowpass(taps, 0.9 / max(up, down),
+                                               gain=up), up, down, "cuda")
+        for n in (1, 7, 1535, 1537, 3457, 40001):
+            buf = torch.randn(3 * n + 1, device="cuda", generator=gen)
+            for x in (buf[:3 * n].view(3, n), buf[1:].view(3, n)):
+                snr = snr_db(resample_plain(x, rs), resample(x, rs))
+                worst_i, count_i = min(worst_i, snr), count_i + 1
+                if snr < 120:
+                    fails += 1
+                    print("I FAIL", up, down, taps, n, snr)
+    up, down, taps = RESAMPLE_LONG_BRANCH
+    h = design_lowpass(taps, 0.9 / max(up, down), gain=up)
+    rs = PolyphaseResampler(h, up, down, "cuda")
+    rs_abs = PolyphaseResampler(np.abs(h), up, down, "cuda")
+    gamma = rs.branch_len * 2.0 ** -24 / (1 - rs.branch_len * 2.0 ** -24)
+    for n in (1, 7, 3457, 40001):
+        x = torch.randn((3, n), device="cuda", generator=gen)
+        want = resample_plain(x, rs)
+        err = (resample(x, rs).double() - want).abs()
+        ratio = float((err / (gamma * resample_plain(x.abs(), rs_abs))
+                       .clamp_min(1e-300)).max())
+        print(f"[I] {up}/{down} L={taps} N={n}: at most {ratio:.3g} of the "
+              "f32 summation bound", flush=True)
+        if ratio > 1:
+            fails += 1
+            print("I FAIL", up, down, taps, n, ratio)
+    torch.cuda.synchronize()
+    print(f"[I] {count_i} comparisons, min SNR {worst_i:.1f} dB, {fails} "
+          "failures", flush=True)
+
+    fj, worst = 0, {"highest": 999.0, "bf16": 999.0, "bf16_vs_f32": 999.0}
+    cases = [(g, None, 1.0) for g in CHAIN_CHECK_GEOMETRIES] + [
+        ((2, 3, 63, 63, 8), b, 1.0) for b in ((37, -50), (-300, 200),
+                                              (2500, -2600))] + [
+        (g, None, g[0] / g[1]) for g in CHAIN_CHECK_LOW_RATES]
+    for (up, down, rs_taps, ch_taps, channels), bounds, band in cases:
+        cfg = ChainConfig(resample_up=up, resample_down=down,
+                          resample_taps=rs_taps, channelizer_taps=ch_taps)
+        re, im = fm_planes_on_card(channels, 3 * 2304 * down // up + 333, gen,
+                                   band=band)
+        out_len = -(-re.shape[1] * up // down)
+        rs_bounds = (None if bounds is None
+                     else (bounds[0], out_len + bounds[1]))
+        args = (cfg.resample_filter(), cfg.channelizer_filter(), up, down,
+                cfg.demod_k_f)
+        chain = FusedChain(*args, precision="highest", device="cuda")
+        want = chain_fused_plain(re, im, chain, rs_bounds)
+        got = chain_fused(re, im, chain, rs_bounds)
+        snr = snr_db(want, got)
+        worst["highest"] = min(worst["highest"], snr)
+        chain16 = FusedChain(*args, precision="bf16", device="cuda")
+        got16 = chain_fused(re.bfloat16(), im.bfloat16(), chain16, rs_bounds)
+        own = snr_db(chain_fused_plain(re, im, chain16, rs_bounds), got16)
+        vs32 = snr_db(want, got16)
+        worst["bf16"] = min(worst["bf16"], own)
+        worst["bf16_vs_f32"] = min(worst["bf16_vs_f32"], vs32)
+        zero = bool((got[:, 0] == 0).all() and (got16[:, 0] == 0).all())
+        # Inside an rs_bounds window's edges both channelized samples of a
+        # message can be exactly zero, where bf16's and f32's signed zeros
+        # give atan2 different multiples of pi: no bf16-vs-f32 bound there.
+        if snr < 95 or own <= 60 or (vs32 <= 40 and bounds is None) \
+                or not zero:
+            fj += 1
+            print("J FAIL", up, down, rs_taps, ch_taps, bounds, snr, own,
+                  vs32, zero)
+    torch.cuda.synchronize()
+    print(f"[J] {len(cases)} geometries x 2 modes, min SNR " + ", ".join(
+        f"{k} {v:.1f} dB" for k, v in worst.items()) + f", {fj} failures",
+          flush=True)
+    return fails + fj
+
+
+def check(chain_only: bool = False) -> int:
     import numpy as np
     import torch
 
@@ -186,13 +351,15 @@ def check() -> int:
     from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
     from warmup_fir_filter_tpu_torch.ops.resample import design_lowpass
 
-    if ptxas("check"):
+    if ptxas("check", CHAIN_SOURCES if chain_only else PTXAS_SOURCES):
         return 1
     t0 = time.perf_counter()
     _build.load_library()
     print(f"[build] {time.perf_counter() - t0:.2f} s")
 
     rng = np.random.default_rng(1)
+    if chain_only:
+        return 1 if check_chain(rng) else 0
     fails = 0
     count = 0
     for fmt in ((16, 12, 32), (16, 12, 20), (8, 7, 16), (32, 12, 28)):
@@ -309,6 +476,7 @@ def check() -> int:
             print("M FAIL", channels, time_len, taps, off, snr, top, share)
     torch.cuda.synchronize()
     print(f"[M] min SNR {worst_m:.1f} dB, {fm} failures")
+    fails += check_chain(rng)
     return 1 if fails or kf or fl or fm else 0
 
 
@@ -462,7 +630,82 @@ def check_frames(rng) -> int:
     return sum(fails.values())
 
 
-def times(tree: str, label: str) -> None:
+def time_chain(label: str, report) -> None:
+    """Config 5's shapes: kernel I on the stacked 32 x 2,000,000 planes and
+    its ``F.conv1d`` yardstick, kernel H on the 32 x 1,333,334 resampled
+    planes, kernel J on 16 x 2,000,000 I/Q in "highest" and "bf16", and
+    ``chain_forward`` "auto" and staged "mxu"; then the SHA-256 of I's and
+    J's outputs, so that two trees' bytes can be compared; then I and J at
+    RATE_TIMINGS, with their outputs' SHA-256."""
+    import hashlib
+
+    import torch
+
+    from warmup_fir_filter_tpu_torch.kernels.chain_fused import (
+        FusedChain, chain_fused)
+    from warmup_fir_filter_tpu_torch.kernels.fir_float import (
+        FloatFir1d, fir_float)
+    from warmup_fir_filter_tpu_torch.kernels.resample import (
+        PolyphaseResampler, resample, resample_plain)
+    from warmup_fir_filter_tpu_torch.models.chain import (
+        ChainConfig, chain_forward)
+    from yardsticks import conv1d_resample, conv1d_resampler
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cfg = ChainConfig()
+    staged = ChainConfig(channelizer_backend="mxu")
+    re, im = fm_planes_on_card(16, 2_000_000, gen)
+    x = torch.cat([re, im], dim=0)
+    h_rs, h_ch = cfg.resample_filter(), cfg.channelizer_filter()
+    rs = PolyphaseResampler(h_rs, 2, 3, "cuda")
+    both = resample(x, rs)
+    fir = FloatFir1d(h_ch, "cuda")
+    chain = FusedChain(h_rs, h_ch, 2, 3, cfg.demod_k_f, precision="highest",
+                       device="cuda")
+    chain16 = FusedChain(h_rs, h_ch, 2, 3, cfg.demod_k_f, precision="bf16",
+                         device="cuda")
+    re16, im16 = re.bfloat16(), im.bfloat16()
+    weight, pad = conv1d_resampler(rs)
+    conv_snr = snr_db(resample_plain(x[:2], rs),
+                      conv1d_resample(x[:2], weight, pad, rs))
+    print(f"[{label}] conv1d resampler vs resample_plain: SNR "
+          f"{conv_snr:.1f} dB", flush=True)
+    report({
+        "I 32x2000000 2/3 63 taps": lambda: resample(x, rs),
+        "I conv1d yardstick (pad, F.conv1d, interleave; TF32 off)":
+            lambda: conv1d_resample(x, weight, pad, rs),
+        "H 32x1333334 63 taps": lambda: fir_float(both, fir),
+        "J 16x2000000 highest": lambda: chain_fused(re, im, chain),
+        "J 16x2000000 bf16": lambda: chain_fused(re16, im16, chain16),
+        "chain_forward auto": lambda: chain_forward(re, im, cfg),
+        "chain_forward staged mxu": lambda: chain_forward(re, im, staged),
+    })
+    for name, out in (("I", resample(x, rs)),
+                      ("J highest", chain_fused(re, im, chain)),
+                      ("J bf16", chain_fused(re16, im16, chain16))):
+        digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+        print(f"[{label}] sha256 {name}: {digest}", flush=True)
+    del both
+    runs, outs = {}, {}
+    for up, down in RATE_TIMINGS:
+        cfg_r = ChainConfig(resample_up=up, resample_down=down)
+        rs_r = PolyphaseResampler(cfg_r.resample_filter(), up, down, "cuda")
+        chain_r = FusedChain(cfg_r.resample_filter(),
+                             cfg_r.channelizer_filter(), up, down,
+                             cfg.demod_k_f, precision="highest",
+                             device="cuda")
+        runs[f"I {up}/{down} 32x2000000"] = lambda r=rs_r: resample(x, r)
+        runs[f"J {up}/{down} 16x2000000 highest"] = (
+            lambda c=chain_r: chain_fused(re, im, c))
+        outs[f"I {up}/{down}"] = lambda r=rs_r: resample(x, r)
+        outs[f"J {up}/{down}"] = lambda c=chain_r: chain_fused(re, im, c)
+    report(runs)
+    for name, fn in outs.items():
+        digest = hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()
+        print(f"[{label}] sha256 {name}: {digest}", flush=True)
+
+
+def times(tree: str, label: str, chain_only: bool = False) -> None:
     root = os.path.abspath(tree)
     sys.path.insert(0, root)
     os.chdir(root)
@@ -496,6 +739,9 @@ def times(tree: str, label: str) -> None:
             print(f"[{label}] {name}: median {m:.4f} ms (min {lo:.4f}, "
                   f"max {hi:.4f})", flush=True)
 
+    time_chain(label, report)
+    if chain_only:
+        return
     gen = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randint(0, 256, (19456, 8192), dtype=torch.uint8, device="cuda",
                       generator=gen)
@@ -640,10 +886,10 @@ def variant(tree: str, label: str) -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["check"]:
-        sys.exit(check())
-    if sys.argv[1:2] == ["times"] and len(sys.argv) == 4:
-        times(sys.argv[2], sys.argv[3])
+    if sys.argv[1:] in (["check"], ["check", "chain"]):
+        sys.exit(check(sys.argv[2:] == ["chain"]))
+    if sys.argv[1:2] == ["times"] and len(sys.argv) in (4, 5):
+        times(sys.argv[2], sys.argv[3], sys.argv[4:] == ["chain"])
         sys.exit(0)
     if sys.argv[1:2] == ["variant"] and len(sys.argv) == 4:
         variant(sys.argv[2], sys.argv[3])
