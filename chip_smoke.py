@@ -19,8 +19,11 @@ of them pass:
             crossover, at widths around its 16-byte chunks and row counts
             that fill no whole CTA; kernel C at 258-4,096 taps over widths
             1-40,000 around its 512-column warp item, odd ones starting rows
-            misaligned); for the 2-D kernels E, F and G (the plain
-            versions run on the card too) the bank and random filters up
+            misaligned; kernel B either side of its 32-tap route crossover
+            and past 4,096 taps, against its plain version on the card, and
+            at 19,456 × 8,192 against kernel A at 5 taps and kernel C at 258
+            and 4,096 taps, card-side); for the 2-D kernels E, F and G (the
+            plain versions run on the card too) the bank and random filters up
             to 33 × 257, F's Lc 86-97 among them, over widths 1-4,099,
             whole frames compared (kernel G within 1 where its f32 sums can
             round).
@@ -51,10 +54,13 @@ of them pass:
             equal to ``fir2d_fixed_torch`` applied ten times, each frame
             still a frame, kernel G's frames equal to kernel F's.
 9. times    CUDA-event medians (per call, over windows of back-to-back
-            calls) at 19,456 × 8,192 uint8, Q4.12: kernels A and B and the
-            plain direct path at 5 taps; kernel A at 3-257 taps and on the
-            5-tap stream's window rows; kernels C and B at 258, 1,001,
-            2,048 and 4,096 taps, the plain path over single calls, and
+            calls) at 19,456 × 8,192 uint8, Q4.12: kernels A and B (B
+            also through ``fir_direct``, which prepares the filter a call),
+            B's plain version and the int32 path at 5 taps; kernel A at 3-257
+            taps and on the 5-tap stream's window rows; kernels C and B at
+            258, 1,001, 2,048 and 4,096 taps, the int32 path over single
+            calls, kernel B at 4,097 and 8,193 taps of ``bench_taps.py``'s
+            low-pass (each held to its plain version first), and
             kernel C on a 1,001-tap stream block; kernel D and its
             plain version at the stream's geometry; the 5-tap stream's
             per-block split into kernel D, the FIR and the checksums; at
@@ -185,6 +191,7 @@ from warmup_fir_filter_tpu_torch.kernels.fir_band import (
 from warmup_fir_filter_tpu_torch.kernels.fir_direct import (
     FixedFirDirect,
     fir_direct,
+    fir_direct_plain,
 )
 from warmup_fir_filter_tpu_torch.kernels.fir_float import (
     FloatFir1d,
@@ -269,8 +276,17 @@ BAND_ODD_ROWS_MAX_WIDTH = 127
 #: Kernel A's timed tap counts at BENCH_SHAPE: the banks, either side of
 #: the short-tap crossover, and the digit planes' range.
 BAND_TIMING_TAPS = (3, 5, 16, 32, 33, 63, 129, 257)
-DIRECT_TAPS = (1, 5, 258, 300, 4097, 5000)
+DIRECT_TAPS = (1, 5, 32, 33, 258, 300, 4097, 5000)
 DIRECT_WIDTHS = (1, 127, 4499, 40000)
+#: Kernel B against the kernel whose core each of its routes runs, at
+#: BENCH_SHAPE: A (short route), C (chunk route, one and two chunks).
+DIRECT_AGAINST = ((5, FixedFir1d), (258, FixedFirWindow),
+                  (4096, FixedFirWindow))
+#: Kernel B's timed tap counts past kernel C's 4,096, with bench_taps.py's
+#: filter (design_lowpass(L, 0.25), Q4.12).
+DIRECT_TIMING_TAPS = (4097, 8193)
+#: Rows of kernel B's plain version on the card at a time (float64 windows).
+DIRECT_PLAIN_ROWS = 1024
 ROWS = 4
 GOLDEN_MAX_WIDTH = 4499
 #: The seven images of the reference corpus by size (W×H 1280×853,
@@ -536,13 +552,14 @@ def check_kernels(agree: dict) -> None:
         qf = QFormat(*f)
         for num_taps in DIRECT_TAPS:
             h = random_taps(rng, qf, num_taps)
+            fir = FixedFirDirect(h, qf, "cuda")
             for n in DIRECT_WIDTHS:
-                x = rng.integers(0, 256, size=(ROWS, n), dtype=np.uint8)
+                x = torch.from_numpy(rng.integers(
+                    0, 256, size=(ROWS, n), dtype=np.uint8)).cuda()
                 label = f"direct L={num_taps} N={n} fmt={f}"
-                got = fir_direct(torch.from_numpy(x).cuda(), h, qf)
-                want = fir1d_fixed_rows_torch(torch.from_numpy(x), h, qf)
-                agree_direct.check(got, want, label)
-                gate_golden(got, x, h, qf, label)
+                got = fir_direct(x, h, qf)
+                agree_direct.check(got, fir_direct_plain(x, fir), label)
+                gate_golden(got, x.cpu().numpy(), h, qf, label)
     for f in FORMATS:
         qf = QFormat(*f)
         for num_taps in WINDOW_TAPS:
@@ -587,14 +604,32 @@ def check_kernels(agree: dict) -> None:
                     f"band {label}")
                 agree_direct.check(
                     fir_direct(xd, h, qf),
-                    fir1d_fixed_rows_torch(x, h, qf),
+                    fir_direct_plain(xd, FixedFirDirect(h, qf, "cuda")),
                     f"direct {label}")
     check_stream_shapes(agree, rng)
+    check_direct_against_a_and_c(agree_direct)
     torch.cuda.synchronize()
     print("[chip_smoke] kernels: " + ", ".join(
         f"{name} {a.count} comparisons" for name, a in agree.items())
         + f"; max |diff| {max(a.max_abs_err for a in agree.values())}",
         flush=True)
+
+
+def check_direct_against_a_and_c(agree: Agreement) -> None:
+    """Kernel B against the kernels whose cores its two routes run, on the
+    card at BENCH_SHAPE (``torch.equal``, no host golden): kernel A at 5
+    taps (the short route), kernel C at 258 and 4,096 taps (the chunk
+    route, one and two chunks)."""
+    qf = QFormat()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    x = torch.randint(0, 256, BENCH_SHAPE, dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    for num_taps, other in DIRECT_AGAINST:
+        h = (np.asarray(FILTER_BANKS[5]["sharpen"]) if num_taps == 5
+             else design_lowpass(num_taps, 0.2))
+        agree.check(FixedFirDirect(h, qf, "cuda")(x),
+                    other.from_numpy(h, qf, "cuda")(x),
+                    f"direct vs {other.__name__} L={num_taps} {BENCH_SHAPE}")
 
 
 def check_rows(agree: Agreement, got: torch.Tensor, x: torch.Tensor, plain,
@@ -1077,9 +1112,13 @@ def time_kernels(card: str) -> dict:
     x = torch.randint(0, 256, BENCH_SHAPE, dtype=torch.uint8, device="cuda",
                       generator=gen)
     fir = FixedFir1d.from_numpy(h, qf, "cuda")
+    fir_b = FixedFirDirect(h, qf, "cuda")
     runs = {
         "fir_band": lambda: fir(x),
-        "fir_direct": lambda: fir_direct(x, h, qf),
+        "fir_direct": lambda: fir_b(x),
+        # The entry prepares the filter (quantize, encode, upload) a call.
+        "fir_direct_entry": lambda: fir_direct(x, h, qf),
+        "fir_direct_plain": lambda: fir_direct_plain(x, fir_b),
         "torch_direct": lambda: fir1d_fixed_rows_torch(x, h, qf),
     }
     x64 = x[:64].cpu().numpy()
@@ -1240,6 +1279,40 @@ def time_long_taps(card: str) -> dict:
                   f"Msamples/s [{shape[0]}x{shape[1]} u8, "
                   f"Q4.12 low-pass; {card}]", flush=True)
         out[num_taps] = {name: m for name, (m, _, _) in med.items()}
+    return out
+
+
+def time_direct_long(card: str) -> dict:
+    """Kernel B at BENCH_SHAPE past kernel C's 4,096 taps, where it is the
+    only route (DIRECT_TIMING_TAPS, ``design_lowpass(L, 0.25)``, Q4.12),
+    each first held equal to its plain version on the card
+    (DIRECT_PLAIN_ROWS rows at a time); returns each tap count's median and
+    the nonzero quantized taps, for its bound."""
+    qf = QFormat()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    x = torch.randint(0, 256, BENCH_SHAPE, dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    out = {}
+    for num_taps in DIRECT_TIMING_TAPS:
+        h = design_lowpass(num_taps, 0.25)
+        fir = FixedFirDirect(h, qf, "cuda")
+        got = fir(x)
+        for r0 in range(0, x.shape[0], DIRECT_PLAIN_ROWS):
+            rows = slice(r0, r0 + DIRECT_PLAIN_ROWS)
+            if not torch.equal(got[rows], fir_direct_plain(x[rows], fir)):
+                raise AssertionError(f"fir_direct != plain at {num_taps} taps,"
+                                     f" rows {r0}..")
+        del got
+        m, lo, hi = median_ms({"fir_direct": lambda f=fir: f(x)},
+                              LONG_TIMING_REPS, LONG_TIMING_LAUNCHES)[
+                                  "fir_direct"]
+        print(f"[chip_smoke] time fir_direct {num_taps} taps: median {m:.4f} "
+              f"ms (min {lo:.4f}, max {hi:.4f}) "
+              f"{x.numel() / m / 1e3:.1f} Msamples/s [{BENCH_SHAPE[0]}x"
+              f"{BENCH_SHAPE[1]} u8, design_lowpass({num_taps}, 0.25), "
+              f"Q4.12; {card}]", flush=True)
+        out[num_taps] = {"ms": m, "nnz": int(np.count_nonzero(
+            qf.quantize_coeffs(h)))}
     return out
 
 
@@ -2055,6 +2128,7 @@ def main() -> int:
     medians = time_kernels(card)
     band_times = time_band(card)
     long_taps = time_long_taps(card)
+    direct_long = time_direct_long(card)
     sustained_ms = (STREAM_CHANNELS * STREAM_BLOCK
                     / stream_5tap["msamples_per_s"] / 1e3)
     split = time_stream_step(card, sustained_ms)
@@ -2117,6 +2191,9 @@ def main() -> int:
                                   2 * nnz_long * block_samples, "int8"),
         **{f"fir_window_{taps}": bound(2 * samples, 2 * nnz * samples, "int8")
            for taps, nnz in nnz_taps.items()},
+        **{f"fir_direct_{taps}": bound(2 * samples, 2 * d["nnz"] * samples,
+                                       "int8")
+           for taps, d in direct_long.items()},
         "window_rows": bound(split["bytes"], 0, "int8"),
         **{kind: bound(2 * times_2d["frame_numel"][kind],
                        2 * nnz_2d * frame_samples,
@@ -2162,10 +2239,18 @@ def main() -> int:
          **counted("fir_direct"),
          "max_abs_err": agree["fir_direct"].max_abs_err,
          "comparisons": agree["fir_direct"].count,
-         "ms": medians["fir_direct"], "plain_ms": medians["torch_direct"],
+         "ms": medians["fir_direct"], "plain_ms": medians["fir_direct_plain"],
+         "int32_path_ms": medians["torch_direct"],
+         "ms_entry": medians["fir_direct_entry"],
          **bounded("fir_direct"), "library_ms": None,
          **{f"ms_{taps}tap": long_taps[taps]["fir_direct"]
-            for taps in LONG_TIMING_TAPS}},
+            for taps in LONG_TIMING_TAPS},
+         **{f"{key}_{taps}tap": value
+            for taps in DIRECT_TIMING_TAPS
+            for key, value in (
+                ("ms", direct_long[taps]["ms"]),
+                ("bound_ms", bounds[f"fir_direct_{taps}"]["bound_ms"]),
+                ("bound_by", bounds[f"fir_direct_{taps}"]["bound_by"]))}},
         {"name": "fir_window", "route": "cuda",
          "source": "warmup_fir_filter_tpu_torch/csrc/fir_window.cu",
          "replaces": "warmup_fir_filter_tpu/kernels/fir_mxu.py:792",

@@ -324,6 +324,7 @@ def test_demod_matches_golden_and_jax(rng):
 _HARNESS = r"""
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 #include <vector>
 
 #include "wft_chain.cuh"
@@ -332,26 +333,97 @@ using wft::kChainThreads;
 using wft::kChainTile;
 using wft::kTileR;
 
+// fir_float.cu's kernel: three CTAs, each walking every third item of the
+// (rows, tiles) grid with its two staging buffers, as the card's CTAs walk
+// theirs, each stage a loop over the threads.
+template <typename T>
+void fir_float_rows(const T* x, float* y, long long rows, long long n,
+                    const float* h, int taps) {
+  constexpr bool kU8 = std::is_same<T, uint8_t>::value;
+  const wft::FirFloatLayout l = wft::fir_float_layout(taps, kU8);
+  std::vector<float> smem(l.total);
+  float* window = smem.data() + l.window_at;
+  float* ys = smem.data() + l.out_at;
+  const auto staged = [&](int slot) {
+    return kU8 ? reinterpret_cast<T*>(
+                     reinterpret_cast<uint8_t*>(smem.data() + l.raw_at) +
+                     slot * l.stage)
+               : reinterpret_cast<T*>(window + slot * l.stage);
+  };
+  for (int t = 0; t < kChainThreads; ++t) {
+    wft::stage_taps(h, 1, taps, taps, l.taps, smem.data(), t, kChainThreads);
+  }
+  const long long tiles = (n + wft::kResampleTile - 1) / wft::kResampleTile;
+  const long long ctas = rows * tiles < 3 ? rows * tiles : 3;
+  for (long long b = 0; b < ctas; ++b) {
+    wft::TileWalk item = wft::walk_start(b, tiles);
+    long long x0 = 0;
+    for (int t = 0; t < kChainThreads; ++t) {
+      x0 = wft::fir_float_stage(x + item.row * n, n,
+                                item.tile * wft::kResampleTile, taps,
+                                staged(0), l.stage, t, kChainThreads);
+    }
+    for (int k = 0; item.row < rows; ++k) {
+      const wft::TileWalk next = wft::walk_next(item, ctas, tiles);
+      long long next_x0 = 0;
+      if (next.row < rows) {
+        for (int t = 0; t < kChainThreads; ++t) {
+          next_x0 = wft::fir_float_stage(
+              x + next.row * n, n, next.tile * wft::kResampleTile, taps,
+              staged((k + 1) & 1), l.stage, t, kChainThreads);
+        }
+      }
+      const float* w = window + (kU8 ? 0 : (k & 1) * l.stage);
+      if (kU8) {
+        for (int t = 0; t < kChainThreads; ++t) {
+          wft::widen_u8(reinterpret_cast<const uint8_t*>(staged(k & 1)),
+                        window, l.stage, t, kChainThreads);
+        }
+      }
+      const long long o0 = item.tile * wft::kResampleTile;
+      float* dst = y + item.row * n + o0;
+      for (int t = 0; t < kChainThreads; ++t) {
+        wft::fir_float_thread(w, o0, x0, smem.data(), taps, l.taps, t,
+                              wft::fir_float_shift(dst), ys);
+      }
+      for (int t = 0; t < kChainThreads; ++t) {
+        wft::fir_float_store(ys, dst,
+                             static_cast<int>(n - o0 < wft::kResampleTile
+                                                  ? n - o0
+                                                  : wft::kResampleTile),
+                             t, kChainThreads);
+      }
+      item = next;
+      x0 = next_x0;
+    }
+  }
+}
+
 extern "C" void fir_float_host(const void* x, int x_is_u8, float* y,
                                long long rows, long long n, const float* h,
                                int taps) {
-  std::vector<float> w(wft::fir_float_window(taps));
-  const int width = static_cast<int>(w.size());
+  if (x_is_u8) {
+    fir_float_rows(static_cast<const uint8_t*>(x), y, rows, n, h, taps);
+  } else {
+    fir_float_rows(static_cast<const float*>(x), y, rows, n, h, taps);
+  }
+}
+
+// Output o of each row by poly_dot over the zero-extended row at o + L / 2.
+extern "C" void fir_float_ref_host(const void* x, int x_is_u8, float* y,
+                                   long long rows, long long n,
+                                   const float* h, int taps) {
+  std::vector<float> w(taps);
   for (long long row = 0; row < rows; ++row) {
-    for (long long o0 = 0; o0 < n; o0 += kChainTile) {
-      const long long base = wft::fir_float_base(o0, taps);
-      for (int t = 0; t < kChainThreads; ++t) {
-        if (x_is_u8) {
-          wft::stage_window(static_cast<const uint8_t*>(x) + row * n, n, base,
-                            w.data(), width, t, kChainThreads);
-        } else {
-          wft::stage_window(static_cast<const float*>(x) + row * n, n, base,
-                            w.data(), width, t, kChainThreads);
-        }
+    for (long long o = 0; o < n; ++o) {
+      for (int j = 0; j < taps; ++j) {
+        const long long i = o + taps / 2 - (taps - 1) + j;
+        w[j] = i < 0 || i >= n ? 0.0f
+               : x_is_u8 ? static_cast<float>(
+                               static_cast<const uint8_t*>(x)[row * n + i])
+                         : static_cast<const float*>(x)[row * n + i];
       }
-      for (int t = 0; t < kChainThreads; ++t) {
-        wft::fir_float_thread(w.data(), h, taps, t, y + row * n, n, o0);
-      }
+      y[row * n + o] = wft::poly_dot(w.data(), taps - 1, h, taps);
     }
   }
 }
@@ -745,6 +817,7 @@ def cores(tmp_path_factory):
     lib = ctypes.CDLL(str(work / "lib.so"))
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.fir_float_host.argtypes = [vp, i32, vp, ll, ll, vp, i32]
+    lib.fir_float_ref_host.argtypes = lib.fir_float_host.argtypes
     lib.resample_host.argtypes = [vp, vp, ll, ll, ll, vp, i32, i32, i32, i32,
                                   i32]
     lib.chain_host.argtypes = [vp, vp, i32, vp, ll, ll, ll, vp, i32, i32, i32,
@@ -762,12 +835,16 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(t.numpy())
 
 
-def _run_fir(lib, x: np.ndarray, fir) -> np.ndarray:
-    x = np.ascontiguousarray(x)
-    y = np.empty(x.shape, np.float32)
+def _run_fir(lib, x: np.ndarray, fir, ref=False, y=None) -> np.ndarray:
+    """Kernel H's CTAs on the host (into ``y`` where given, a view whose
+    address sets the output rows' alignment); with ``ref``, every output
+    by ``poly_dot`` over the zero-extended row."""
+    assert x.flags.c_contiguous
+    y = np.full(x.shape, np.nan, np.float32) if y is None else y
     taps = _np(fir.taps)
-    lib.fir_float_host(x.ctypes.data, int(x.dtype == np.uint8), y.ctypes.data,
-                       x.shape[0], x.shape[1], taps.ctypes.data, fir.num_taps)
+    (lib.fir_float_ref_host if ref else lib.fir_float_host)(
+        x.ctypes.data, int(x.dtype == np.uint8), y.ctypes.data, x.shape[0],
+        x.shape[1], taps.ctypes.data, fir.num_taps)
     return y
 
 
@@ -1000,15 +1077,58 @@ def test_routes_take_every_shape_the_first_form_took(cores):
 
 @pytest.mark.parametrize("num_taps", [1, 2, 5, 63, 64, 257])
 def test_fir_float_core(cores, rng, num_taps):
-    """Widths around the 1,024-output tile, u8 and f32 rows."""
+    """Widths around the 2,304-output item, u8 and f32 rows, against the
+    float64 plain version."""
     fir = fir_float.FloatFir1d(rng.standard_normal(num_taps)
                                / np.sqrt(num_taps))
-    for width in (1, 100, 1024, 1025, 2500):
+    for width in (1, 100, 2304, 2305, 5000):
         for x in (rng.integers(0, 256, size=(3, width), dtype=np.uint8),
                   rng.standard_normal((3, width)).astype(np.float32)):
             want = fir_float.fir_float_plain(torch.from_numpy(x), fir)
             got = _run_fir(cores, x, fir)
             assert snr_db(want.numpy(), got) >= 120.0, (num_taps, width)
+
+
+def _aligned_rows(x: np.ndarray, offset: int) -> np.ndarray:
+    """``x`` copied to ``offset`` bytes past a 64-byte boundary."""
+    store = np.zeros(x.nbytes + 128, np.uint8)
+    start = (-store.ctypes.data) % 64 + offset
+    view = store[start : start + x.nbytes].view(x.dtype).reshape(x.shape)
+    view[:] = x
+    return view
+
+
+@pytest.mark.parametrize("num_taps", [1, 2, 9, 10, 63, 257])
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_fir_float_core_equals_poly_dot(cores, rng, num_taps, dtype):
+    """Kernel H's CTAs, bit for bit against ``poly_dot`` per output (each
+    output one fmaf a tap, ascending, from 0, as the first form's): widths
+    shorter than the filter, around a window's 16-sample chunks and the
+    2,304-output item (ragged tails), three CTAs walking several items each
+    (a width of 7,000 on three rows is nine items), and input and output
+    rows at every alignment (rows of 4,097 samples start at every 16-byte
+    offset; whole arrays at byte offsets)."""
+    fir = fir_float.FloatFir1d(
+        (rng.standard_normal(num_taps)
+         * 10.0 ** rng.integers(-2, 3, num_taps)).astype(np.float32))
+    cases = [(3, w) for w in (1, 5, 17, 200, 2304, 2305, 7000)] + [(5, 4097)]
+    for rows, width in cases:
+        if dtype == "uint8":
+            x = rng.integers(0, 256, size=(rows, width), dtype=np.uint8)
+        else:
+            x = (rng.standard_normal((rows, width))
+                 * 10.0 ** rng.integers(-3, 4, (rows, width))).astype(
+                     np.float32)
+        want = _run_fir(cores, x, fir, ref=True)
+        assert np.isfinite(want).all()
+        for offset in (0, 4, 8) if width == 4097 else (0,):
+            if dtype == "uint8":
+                offset += 3
+            xa = _aligned_rows(x, offset)
+            ya = _aligned_rows(np.full(x.shape, np.nan, np.float32), 4)
+            got = _run_fir(cores, xa, fir, y=ya)
+            np.testing.assert_array_equal(got, want,
+                                          err_msg=f"{rows}x{width}+{offset}")
 
 
 @pytest.mark.parametrize("up,down", [(2, 3), (4, 3), (2, 1), (8, 5), (1, 2),

@@ -62,7 +62,7 @@ def _rows(rng, width=77):
 def test_auto_picks_kernel_by_taps(monkeypatch, rng, num_taps, kernel):
     """The JAX package's choice (``dispatch.py:59-64``), by tap count."""
     calls = []
-    plain_band, plain_direct = fir_band.fir_band_plain, fir_direct.fir1d_fixed_rows_torch
+    plain_band, plain_direct = fir_band.fir_band_plain, fir_direct.fir_direct_plain
     plain_window = fir_window.fir_window_plain
 
     def band_spy(x, fir):
@@ -73,13 +73,13 @@ def test_auto_picks_kernel_by_taps(monkeypatch, rng, num_taps, kernel):
         calls.append("window")
         return plain_window(x, fir)
 
-    def direct_spy(x, h, qf):
+    def direct_spy(x, fir):
         calls.append("direct")
-        return plain_direct(x, h, qf)
+        return plain_direct(x, fir)
 
     monkeypatch.setattr(fir_band, "fir_band_plain", band_spy)
     monkeypatch.setattr(fir_window, "fir_window_plain", window_spy)
-    monkeypatch.setattr(fir_direct, "fir1d_fixed_rows_torch", direct_spy)
+    monkeypatch.setattr(fir_direct, "fir_direct_plain", direct_spy)
     qf = QFormat(16, 12, 24)
     h = rng.uniform(-0.05, 0.05, size=num_taps)
     x = _rows(rng)
@@ -194,8 +194,10 @@ def test_prepared_direct_uploads_taps_once(rng):
     assert fir.h_fixed.dtype == torch.int32
     np.testing.assert_array_equal(fir.h_fixed.numpy(),
                                   qf.quantize_coeffs(h).astype(np.int32))
-    assert set(fir.state_dict()) == {"h_fixed"}
+    assert set(fir.state_dict()) == {"h_fixed", "bias", "needs_wrap",
+                                     "digits", "copies", "chunk_table"}
     assert fir.to("meta").h_fixed.device.type == "meta"
+    assert fir.to("meta").copies.device.type == "meta"
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):

@@ -20,6 +20,7 @@ from warmup_fir_filter_tpu.kernels import fir_mxu as jax_fir_mxu
 from warmup_fir_filter_tpu.kernels import resample_mxu as jax_resample_mxu
 from warmup_fir_filter_tpu.kernels import window_copy as jax_window_copy
 from warmup_fir_filter_tpu.models.filters import FILTER_BANKS
+from warmup_fir_filter_tpu.ops.fir2d import FILTER_BANK_2D
 from warmup_fir_filter_tpu.ops.qformat import QFormat as JaxQFormat
 from warmup_fir_filter_tpu_torch import kernels
 from warmup_fir_filter_tpu_torch.kernels.fir_window import (
@@ -171,6 +172,11 @@ def _close(rtol, atol):
     return compare
 
 
+def _equal(got, want):
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
 def _u8_within_one(got, want):
     assert np.abs(got.astype(np.int32) - np.asarray(want, np.int32)).max() <= 1
 
@@ -191,10 +197,16 @@ def _fused_seg_tiles() -> int:
     raise AssertionError("no superblock fits")
 
 
+#: The 2-D frame entries' image: (H, W), taps, the frames' block rows.
+FRAME_IMAGE = (24, 150)
+FRAME_TAPS = (5, 5)
+FRAME_BLOCK_ROWS = 8
+
+
 def _host_array_cases():
-    """(name, port call, JAX call, comparison at the JAX tests' bound) for
-    every float entry that takes samples; each call takes a tuple of numpy
-    arrays."""
+    """(name, input kind, port call, JAX call, comparison at the JAX tests'
+    bound: ``np.array_equal`` for the fixed-point entries) for every entry
+    that takes samples; each call takes a tuple of numpy arrays."""
     from warmup_fir_filter_tpu.kernels import chain_fused as jax_fused
     from warmup_fir_filter_tpu.kernels import fft_pallas as jax_fft
     from warmup_fir_filter_tpu.kernels import fir_float_mxu as jax_ff
@@ -208,8 +220,67 @@ def _host_array_cases():
     from warmup_fir_filter_tpu_torch.ops import demod, fftfilt
     from warmup_fir_filter_tpu_torch.ops import resample as port_resample
 
+    from warmup_fir_filter_tpu.kernels import dispatch as jax_dispatch
+    from warmup_fir_filter_tpu.kernels import fir2d_mxu as jax_fir2d
+    from warmup_fir_filter_tpu_torch.kernels import dispatch, fir2d
+
     cfg = port_chain.ChainConfig()
     h_rs, h_ch = cfg.resample_filter(), cfg.channelizer_filter()
+    h5 = np.asarray(FILTER_BANKS[5]["sharpen"])
+    h300 = design_lowpass(300, 0.2)
+    h2d = np.asarray(FILTER_BANK_2D["gauss5"])
+    fmt = QFormat(16, 12, 20)
+    jfmt = JaxQFormat(16, 12, 20)
+    t0, _, _, br = fir2d.frame_geometry(*FRAME_IMAGE, FRAME_TAPS[0],
+                                        block_rows=FRAME_BLOCK_ROWS)
+    core = (t0, *FRAME_IMAGE)
+    ot0, _, _, obr, _ = fir2d.oframe_geometry(*FRAME_IMAGE, *FRAME_TAPS,
+                                              block_rows=FRAME_BLOCK_ROWS)
+    ocore = (ot0, *FRAME_IMAGE)
+    fixed = [
+        ("fir1d_fixed_rows_mxu", "u8",
+         lambda x: kernels.fir1d_fixed_rows_mxu(x, h5, fmt),
+         lambda x: jax_kernels.fir1d_fixed_rows_mxu(x, h5, jfmt,
+                                                    interpret=True),
+         _equal),
+        ("fir1d_fixed_rows_pallas", "u8",
+         lambda x: kernels.fir1d_fixed_rows_pallas(x, h300, fmt),
+         lambda x: jax_kernels.fir1d_fixed_rows_pallas(x, h300, jfmt,
+                                                       interpret=True),
+         _equal),
+        ("fir1d_fixed_rows_mxu_window", "u8",
+         lambda x: fir1d_fixed_rows_mxu_window(x, h300, fmt),
+         lambda x: jax_fir_mxu.fir1d_fixed_rows_mxu_window(
+             x, h300, jfmt, interpret=True),
+         _equal),
+        ("fir1d_fixed_rows_auto", "u8",
+         lambda x: dispatch.fir1d_fixed_rows_auto(x, h300, fmt),
+         lambda x: jax_dispatch.fir1d_fixed_rows_auto(x, h300, jfmt),
+         _equal),
+        ("window_rows_pallas", "windows",
+         lambda x, carry: window_rows_pallas(x, carry, 512, 1),
+         lambda x, carry: jax_window_copy.window_rows_pallas(
+             x, carry, 512, 1, interpret=True),
+         _equal),
+        ("fir2d_fixed_frame", "frame",
+         lambda x: fir2d.fir2d_fixed_frame(x, h2d, fmt, core=core,
+                                           block_rows=br),
+         lambda x: jax_fir2d.fir2d_fixed_frame(x, h2d, jfmt, core=core,
+                                               block_rows=br),
+         _equal),
+        ("fir2d_fixed_frame_overlap", "oframe",
+         lambda x: fir2d.fir2d_fixed_frame_overlap(x, h2d, fmt, core=ocore,
+                                                   block_rows=obr),
+         lambda x: jax_fir2d.fir2d_fixed_frame_overlap(
+             x, h2d, jfmt, core=ocore, block_rows=obr),
+         _equal),
+        ("fir2d_frame_overlap_bf16", "oframe",
+         lambda x: fir2d.fir2d_frame_overlap_bf16(x, h2d, QFormat(),
+                                                  core=ocore, block_rows=obr),
+         lambda x: jax_fir2d.fir2d_frame_overlap_bf16(
+             x, h2d, JaxQFormat(), core=ocore, block_rows=obr),
+         _equal),
+    ]
     h_rs_up = design_lowpass(63, 0.3, gain=2)
     h63 = design_lowpass(63, 0.25)
     k_f = cfg.demod_k_f
@@ -274,7 +345,7 @@ def _host_array_cases():
          lambda x: fft.fir_overlap_save_stream(x, h63),
          lambda x: jax_fft.fir_overlap_save_stream(x, h63, r_windows=2),
          _snr_above(90.0)),
-    ]
+    ] + fixed
 
 
 def resample_mxu_highest(x, h):
@@ -295,6 +366,19 @@ def _host_inputs(kind: str, rng) -> tuple:
         return (rng.integers(0, 256, size=(2, 1500), dtype=np.uint8),)
     if kind == "fft":
         return (rng.standard_normal((5, 512)).astype(np.float32),)
+    if kind == "windows":
+        return (rng.integers(0, 256, size=(2, 1024), dtype=np.uint8),
+                rng.integers(0, 256, size=(2, 128), dtype=np.uint8))
+    if kind in ("frame", "oframe"):
+        from warmup_fir_filter_tpu_torch.kernels import fir2d
+
+        image = torch.from_numpy(rng.integers(0, 256, size=FRAME_IMAGE,
+                                              dtype=np.uint8))
+        pad = fir2d.pad_frame if kind == "frame" else (
+            lambda x, taps_r, block_rows: fir2d.pad_frame_overlap(
+                x, taps_r, FRAME_TAPS[1], block_rows=block_rows))
+        frame, _ = pad(image, FRAME_TAPS[0], block_rows=FRAME_BLOCK_ROWS)
+        return (frame.numpy(),)
     return (rng.standard_normal((3, 3000)).astype(np.float32),)
 
 
@@ -312,3 +396,20 @@ def test_host_arrays_go_to_the_card(rng, name):
     got = port(*(torch.from_numpy(a) for a in arrays))
     got = got if isinstance(got, np.ndarray) else got.numpy()
     compare(got, np.asarray(jax_fn(*arrays)))
+
+
+def test_auto_wide_accumulator_host_array_goes_to_the_card(rng):
+    """acc_bits > 32 on a numpy array: the array goes to the card first,
+    so without CUDA the device error, not an AttributeError of the host
+    array; a CPU tensor still takes the golden."""
+    from warmup_fir_filter_tpu.models.golden import fir1d_fixed_golden_rows
+    from warmup_fir_filter_tpu_torch.kernels import dispatch
+
+    x = rng.integers(0, 256, size=(2, 64), dtype=np.uint8)
+    h = np.array([7.5, -8.0, 7.9])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        dispatch.fir1d_fixed_rows_auto(x, h, QFormat(32, 12, 48))
+    np.testing.assert_array_equal(
+        dispatch.fir1d_fixed_rows_auto(torch.from_numpy(x), h,
+                                       QFormat(32, 12, 48)).numpy(),
+        fir1d_fixed_golden_rows(x, h, JaxQFormat(32, 12, 48)))

@@ -62,10 +62,12 @@ _SIGNATURES = {
          ctypes.c_uint32, _INT, _INT, _INT, _VOIDP, _VOIDP],
         _INT,
     ),
-    # x, y, rows, n, taps (device int32), num_taps, frac_bits, acc_bits,
-    # stream
+    # x, y, rows, n, taps, int32 taps (host), bias, needs_wrap, frac_bits,
+    # acc_bits, copy words (device), copy_words, chunk table (device),
+    # chunk table (host), chunks, planes, stream
     "wft_fir_direct": (
-        [_VOIDP, _VOIDP, _LL, _LL, _VOIDP, _INT, _INT, _INT, _VOIDP],
+        [_VOIDP, _VOIDP, _LL, _LL, _INT, _VOIDP, ctypes.c_uint32, _INT, _INT,
+         _INT, _VOIDP, _INT, _VOIDP, _VOIDP, _INT, _INT, _VOIDP],
         _INT,
     ),
     # x, y, rows, n, digit words (device), digit_words, planes, taps,

@@ -11,12 +11,12 @@
 // row with a reversed run of a shared-memory window,
 //   acc = sum_j taps[j] * w[a - j]      (ascending j, one f32 FMA each),
 // the same order as the float64 goldens.  The float FIR is the case P = Q = 1
-// of the polyphase resampler.  Kernel H computes it with poly_dot4 (four
-// outputs 256 apart share each tap load); kernels I and J with the tiled
-// cores below (nine outputs of one tap row in a sliding register window),
-// or, where a shape has no tiled core or its tiled layout would not fit
-// in shared memory, on the compact route (poly_dot4 again).  Every route
-// gives poly_dot's sums bit for bit.  The TPU kernels' band matrices
+// of the polyphase resampler.  All three run the tiled cores below (nine
+// outputs of one tap row in a sliding register window); kernels I and J,
+// where a shape has no tiled core or its tiled layout would not fit in
+// shared memory, take the compact route (poly_dot4: four outputs 256 apart
+// share each tap load).  Every route gives poly_dot's sums bit for bit.
+// The TPU kernels' band matrices
 // (fir_float_mxu.py::build_tile_band_planes_f32, resample_mxu.py::
 // build_resample_band) hold exactly these taps at A[a - j, i]; the card has
 // native f32 FMAs, so the kernels walk the J nonzeros of each band column
@@ -34,9 +34,9 @@
 
 namespace wft {
 
-// Kernel H's CTA computes kChainTile consecutive outputs of one row; thread
-// t computes outputs t + kChainThreads * u, u < 4.  Kernels I and J run
-// kChainThreads threads a CTA too.
+// Kernels H, I and J run kChainThreads threads a CTA.  On the compact route
+// a CTA computes kChainTile consecutive outputs of one row, thread t the
+// outputs t + kChainThreads * u, u < 4.
 constexpr int kChainThreads = 256;
 constexpr int kChainPerThread = 4;
 constexpr int kChainTile = kChainThreads * kChainPerThread;
@@ -115,28 +115,6 @@ WFT_INLINE void poly_dot4(const float* w, int a, int stride,
     for (int u = 0; u < kChainPerThread; ++u) {
       acc[u] = fmaf(h, w[a + u * stride - j], acc[u]);
     }
-  }
-}
-
-// ---------------------------------------------------------------- kernel H
-// CTA (row, o0): w holds x[row, o0 - left .. o0 + kChainTile + center)
-// with left = L - 1 - L / 2 (fir_float_window floats); output o0 + i is
-// sum_k h[k] * w[i + L - 1 - k] (the same-mode contract, k ascending).
-WFT_INLINE int fir_float_window(int taps) { return kChainTile + taps - 1; }
-
-WFT_INLINE long long fir_float_base(long long o0, int taps) {
-  return o0 - (taps - 1 - taps / 2);
-}
-
-WFT_INLINE void fir_float_thread(const float* w, const float* h, int taps,
-                                 int t, float* y_row, long long n,
-                                 long long o0) {
-  float acc[kChainPerThread];
-  poly_dot4(w, t + taps - 1, kChainThreads, h, taps, acc);
-  WFT_UNROLL
-  for (int u = 0; u < kChainPerThread; ++u) {
-    const long long o = o0 + t + kChainThreads * u;
-    if (o < n) y_row[o] = acc[u];
   }
 }
 
@@ -302,18 +280,19 @@ WFT_INLINE void load16(const uint16_t* p, float v[8]) {
   }
 }
 
-// w[i] = row[start + i] for i < width (start and width multiples of
-// kStageAlign), zero outside [0, n), in the row's own type: 16-byte chunks
-// inside an aligned row by cp.async (visible after async_wait and a
+// w[i] = row[start + i] for i < width (a multiple of 16 bytes' samples),
+// zero outside [0, n), in the row's own type: 16-byte chunks inside the row
+// at 16-byte aligned addresses by cp.async (visible after async_wait and a
 // barrier), the others written at once.
 template <typename T>
 WFT_INLINE void stage_row_async(const T* row, long long n, long long start,
                                 T* w, int width, int t, int threads) {
   constexpr int V = 16 / static_cast<int>(sizeof(T));
-  const bool aligned = reinterpret_cast<uintptr_t>(row) % 16 == 0;
+  const uintptr_t base = reinterpret_cast<uintptr_t>(row);
   for (int c = t; c < width / V; c += threads) {
     const long long g = start + static_cast<long long>(c) * V;
-    if (aligned && g >= 0 && g + V <= n) {
+    if (g >= 0 && g + V <= n &&
+        (base + static_cast<uintptr_t>(g) * sizeof(T)) % 16 == 0) {
       copy16_async(reinterpret_cast<uint8_t*>(w + c * V),
                    reinterpret_cast<const uint8_t*>(row + g));
     } else {
@@ -484,6 +463,124 @@ WFT_INLINE void store_run(const float* ys, float* dst, int count, int t,
   }
   WFT_ROLLED
   for (i += t; i < count; i += threads) dst[i] = ys[i];
+}
+
+// ---------------------------------------------------------------- kernel H
+// Kernel H is kernel I's arithmetic at P = Q = 1 with the same-mode anchor:
+// output o of a row is poly_dot over the zero-extended row at o + L / 2,
+//   y[o] = sum_k h[k] * x[o + L / 2 - k]      (ascending k, one fmaf each).
+// A work item (row, tile) is the kResampleTile outputs o0 = tile
+// kResampleTile ..; thread t computes the group o0 + kTileR t + u (u <
+// kTileR) with group_dot<1> from the item's f32 window, which holds
+// x[x0 ..] from x0 at or below the item's first sample o0 - left (left =
+// L - 1 - L / 2) such that the row address of x0 is a multiple of 16 bytes:
+// every interior 16-byte chunk of the window is one cp.async.  f32 rows
+// land in one of two windows; u8 rows (cp.async cannot convert) land as
+// bytes in one of two raw buffers and are widened into the one window once
+// the item's copies are complete.  The group's outputs go to a tile in
+// shared memory that holds output i at i + m, m the output row's
+// misalignment in floats, so that 16-byte stores leave it aligned on both
+// sides.
+//
+// Shared floats: the tap table, the windows, the raw buffers (u8 rows), the
+// output tile.
+struct FirFloatLayout {
+  TapLayout taps;
+  int stage;      // samples a staged window holds (a multiple of 16)
+  int window_at;  // f32 windows: two for f32 rows, one for u8 rows
+  int raw_at;     // u8 rows: two raw windows of `stage` bytes
+  int out_at;     // the output tile: kResampleTile + 4 floats
+  int total;
+};
+
+// Samples of a 16-byte u8 chunk: a window of any sample type starts at most
+// this many samples less one below its first sample.
+constexpr int kFirChunk = 16;
+
+WFT_INLINE FirFloatLayout fir_float_layout(int taps, bool u8) {
+  FirFloatLayout l;
+  l.taps = tap_layout(1, taps);
+  const int window = kResampleTile + taps - 1;
+  l.stage = (window + 2 * kFirChunk - 2) / kFirChunk * kFirChunk;
+  l.window_at = l.taps.row;
+  l.raw_at = l.window_at + (u8 ? 1 : 2) * l.stage;
+  l.out_at = l.raw_at + (u8 ? 2 * l.stage / 4 : 0);
+  l.total = l.out_at + kResampleTile + 4;
+  return l;
+}
+
+// The first staged sample of a window whose first read sample is `first`:
+// the nearest at or below it whose address in `row` is a multiple of 16
+// bytes (rows of whole samples, as tensors are).
+template <typename T>
+WFT_INLINE long long fir_float_x0(const T* row, long long first) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const long long lead = static_cast<long long>(
+      reinterpret_cast<uintptr_t>(row) / sizeof(T) % V);
+  return first - (((first + lead) % V) + V) % V;
+}
+
+// Stage item o0's window of `width` samples (a multiple of 16) into w;
+// returns its first sample x0.
+template <typename T>
+WFT_INLINE long long fir_float_stage(const T* row, long long n, long long o0,
+                                     int taps, T* w, int width, int t,
+                                     int threads) {
+  const long long x0 = fir_float_x0(row, o0 - (taps - 1 - taps / 2));
+  stage_row_async(row, n, x0, w, width, t, threads);
+  return x0;
+}
+
+// w[i] = raw[i] as f32 for i < width (a multiple of 4), four a thread.
+WFT_INLINE void widen_u8(const uint8_t* raw, float* w, int width, int t,
+                         int threads) {
+  WFT_ROLLED
+  for (int c = t; c < width / 4; c += threads) {
+    const uint32_t u = shared_word(raw, 4 * c);
+    const float v[4] = {static_cast<float>(u & 0xffu),
+                        static_cast<float>((u >> 8) & 0xffu),
+                        static_cast<float>((u >> 16) & 0xffu),
+                        static_cast<float>(u >> 24)};
+    store4(w + 4 * c, v);
+  }
+}
+
+// The output row's misalignment in floats.
+WFT_INLINE int fir_float_shift(const float* dst) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(dst) >> 2) & 3u);
+}
+
+// Thread t's group of the item o0 from its window w (staged from x0) and
+// the tap table, into the tile ys at the shift m.
+WFT_INLINE void fir_float_thread(const float* w, long long o0, long long x0,
+                                 const float* taps, int len,
+                                 const TapLayout& l, int t, int m,
+                                 float* ys) {
+  float acc[kTileR];
+  group_dot<1>(w, static_cast<int>(o0 + len / 2 - x0) + kTileR * t, taps,
+               len, l, acc);
+  WFT_UNROLL
+  for (int u = 0; u < kTileR; ++u) ys[m + kTileR * t + u] = acc[u];
+}
+
+// dst[i] = ys[i + m] for i < count (m = fir_float_shift(dst)): the head up
+// to dst's first aligned float, then 16-byte stores, then the tail.
+WFT_INLINE void fir_float_store(const float* ys, float* dst, int count,
+                                int t, int threads) {
+  const int m = fir_float_shift(dst);
+  const int head = ((4 - m) & 3) < count ? ((4 - m) & 3) : count;
+  if (t < head) dst[t] = ys[m + t];
+  const int body = (count - head) >> 2;
+  WFT_ROLLED
+  for (int c = t; c < body; c += threads) {
+    float v[4];
+    load4(ys + m + head + 4 * c, v);
+    store4(dst + head + 4 * c, v);
+  }
+  WFT_ROLLED
+  for (int i = head + 4 * body + t; i < count; i += threads) {
+    dst[i] = ys[m + i];
+  }
 }
 
 // ---------------------------------------------------------------- kernel J

@@ -168,14 +168,15 @@ WFT_INLINE int window_stage(uint8_t* buf, const uint8_t* x, long long n,
 // Each plane's s32 sums are exact (|s| <= 4096 * 128 * 128 = 2^26) and
 // fold into the uint32 accumulator mod 2^32 shifted by the plane's
 // exponent; a shift of 32 or more leaves nothing.
-WFT_INLINE void window_warp(const uint8_t* buf, int off, const uint32_t* ds,
-                            const WindowLayout& lay, uint32_t bias,
-                            bool wrap, int frac_bits, int acc_bits,
-                            uint8_t* y, long long r, long long n,
-                            long long col0) {
-  constexpr uint32_t kRebias = 0x80808080u;
-  const int delta = off & 3;
-  uint32_t acc[kWindowTiles][kLaneSlots][4];
+//
+// window_warp is three parts: the accumulators start at the bias
+// (window_start), the planes' sums fold in (window_accumulate), the
+// epilogue writes the bytes (window_epilogue).  Kernel B runs the middle
+// part once per tap chunk on accumulators it keeps across the chunks.
+// A lane's accumulators: D fragment j of m16 tile u, for each lane slot.
+using WindowAcc = uint32_t[kWindowTiles][kLaneSlots][4];
+
+WFT_INLINE void window_start(WindowAcc& acc, uint32_t bias) {
   WFT_LANES(l) {
     WFT_UNROLL
     for (int u = 0; u < kWindowTiles; ++u) {
@@ -183,6 +184,13 @@ WFT_INLINE void window_warp(const uint8_t* buf, int off, const uint32_t* ds,
       for (int j = 0; j < 4; ++j) acc[u][WFT_SLOT(l)][j] = bias;
     }
   }
+}
+
+WFT_INLINE void window_accumulate(const uint8_t* buf, int off,
+                                  const uint32_t* ds, const WindowLayout& lay,
+                                  WindowAcc& acc) {
+  constexpr uint32_t kRebias = 0x80808080u;
+  const int delta = off & 3;
   for (int b = 0; b < lay.planes; ++b) {
     const WindowPlane& pl = lay.plane[b];
     if (pl.chunks == 0 || pl.exp >= 32) continue;
@@ -256,6 +264,12 @@ WFT_INLINE void window_warp(const uint8_t* buf, int off, const uint32_t* ds,
       }
     }
   }
+}
+
+// Outputs col0 + [0, kWindowCols) of row r from the accumulators.
+WFT_INLINE void window_epilogue(const WindowAcc& acc, bool wrap,
+                                int frac_bits, int acc_bits, uint8_t* y,
+                                long long r, long long n, long long col0) {
   uint8_t* out = y + r * n;
   WFT_LANES(l) {
     const int g = l >> 2;
@@ -272,6 +286,65 @@ WFT_INLINE void window_warp(const uint8_t* buf, int off, const uint32_t* ds,
         }
       }
     }
+  }
+}
+
+WFT_INLINE void window_warp(const uint8_t* buf, int off, const uint32_t* ds,
+                            const WindowLayout& lay, uint32_t bias,
+                            bool wrap, int frac_bits, int acc_bits,
+                            uint8_t* y, long long r, long long n,
+                            long long col0) {
+  WindowAcc acc;
+  window_start(acc, bias);
+  window_accumulate(buf, off, ds, lay, acc);
+  window_epilogue(acc, wrap, frac_bits, acc_bits, y, r, n, col0);
+}
+
+// Kernel B's long route (fir_direct.cu): kernel C's warp core walked over
+// chunks of the reversed taps.  Chunk c holds rd[q0 + q'] for q' below its
+// length (q0 = c times the chunk length, at most kWindowMaxTaps, so that a
+// chunk's plane sums stay exact in s32); its share of output column col is
+// C's correlation over the window xs_c[j] = x~[col - left + q0 + j], so a
+// chunk is C's item with the halo left - q0 and a plane table of its own,
+// each plane trimmed to its nonzero quads within the chunk.  The host
+// builds each chunk's shifted digit copies in window_layout's shared layout
+// (kernels/fir_direct.py::chunk_operands), so a CTA stages them with
+// cp.async; the chunks' sums fold into the accumulators mod 2^32, which is
+// associative, so the chunking changes no byte.
+//
+// A chunk's row of the chunk table: its first copy word (a multiple of 4),
+// q0, then kPlaneFields ints a plane (exponent, first quad, quads, 0).
+constexpr int kChunkCopyAt = 0;
+constexpr int kChunkQ0 = 1;
+constexpr int kChunkPlanes = 2;
+
+WFT_INLINE int chunk_fields(int planes) {
+  return kChunkPlanes + kPlaneFields * planes;
+}
+
+struct DirectChunk {
+  WindowLayout lay;
+  int copy_at;  // first word of the chunk's copies
+  int q0;       // first reversed tap of the chunk
+};
+
+WFT_INLINE DirectChunk direct_chunk(const int* table, int planes, int c) {
+  const int* row = table + c * chunk_fields(planes);
+  DirectChunk ch;
+  ch.lay = window_layout(row + kChunkPlanes, planes);
+  ch.copy_at = row[kChunkCopyAt];
+  ch.q0 = row[kChunkQ0];
+  return ch;
+}
+
+// Thread t of `threads`: the chunk's copy words into ds, 16 bytes at a time
+// by cp.async (copy_words is a multiple of 4: each plane's 4 * stride).
+WFT_INLINE void direct_stage_copies(uint32_t* ds, const uint32_t* copies,
+                                    const DirectChunk& ch, int t,
+                                    int threads) {
+  for (int i = t; i < ch.lay.copy_words / 4; i += threads) {
+    copy16_async(reinterpret_cast<uint8_t*>(ds + 4 * i),
+                 reinterpret_cast<const uint8_t*>(copies + ch.copy_at + 4 * i));
   }
 }
 

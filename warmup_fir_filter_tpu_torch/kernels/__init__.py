@@ -25,8 +25,10 @@
                    ``fir2d_fixed_auto``.
 
 The package exports the JAX package's 14 kernel entries under their names;
-each runs on its input tensor's device, and the 2-D image entries put a
-host array on the card, as the JAX functions put it on their accelerator.  ``fir1d_fixed_rows_mxu_window``,
+each runs on its input tensor's device, and each that filters or pads
+puts a host array on the card, as the JAX functions put it on their
+accelerator (``crop_frame_overlap`` slices the frame it is given).
+``fir1d_fixed_rows_mxu_window``,
 ``resample_poly_mxu`` and ``window_rows_pallas`` live in their modules, as
 in the JAX package.
 """

@@ -8,9 +8,14 @@ on the input's device:
 - 258 ≤ L ≤ 4,096: the windowed kernel (kernel C, ``fir_window``), which
   ports K3;
 - L > 4,096: the direct-form kernel (kernel B, ``fir_direct``), which
-  ports K4.
-- ``acc_bits > 32`` fits none of them: on a CUDA tensor it raises, as
-  ``FixedFir1d.from_numpy`` does; on a CPU tensor it runs the host golden.
+  ports K4 and is the only route past kernel C's 4,096 taps.  B walks
+  kernel C's int8 tensor-core core over chunks of the taps, each chunk's
+  digit planes trimmed to its nonzero taps, so it runs at C's rate per
+  nonzero tap for any L; up to 32 taps (the CLI's ``--backend direct``)
+  it runs kernel A's short-tap core.
+- ``acc_bits > 32`` fits none of them: on a CUDA tensor (or a host array,
+  which goes to the card) it raises, as ``FixedFir1d.from_numpy`` does;
+  on a CPU tensor it runs the host golden.
   The fixed stage sends such formats to the golden before any tensor is
   made (``pipeline/stages.py::_fixed_compute``), as the JAX package's
   stage does.
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.kernels.fir2d import as_image, fir2d_fixed_mxu
 from warmup_fir_filter_tpu_torch.kernels.fir_band import MAX_TAPS, FixedFir1d
 from warmup_fir_filter_tpu_torch.kernels.fir_direct import FixedFirDirect
@@ -64,7 +70,9 @@ def prepare_fixed_fir(h, qformat: QFormat = QFormat(),
 
 def fir1d_fixed_rows_auto(x_u8: torch.Tensor, h,
                           qformat: QFormat = QFormat()) -> torch.Tensor:
-    """Bit-exact fixed FIR over (B, N) uint8 rows on ``x_u8.device``."""
+    """Bit-exact fixed FIR over (B, N) uint8 rows on ``x_u8.device`` (a
+    host array goes to the card, ``_build.as_rows``)."""
+    x_u8 = _build.as_rows(x_u8)
     if not qformat.tpu_native:
         if x_u8.device.type != "cpu":
             raise ValueError(

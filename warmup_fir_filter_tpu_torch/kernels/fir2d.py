@@ -750,11 +750,13 @@ def fir2d_fixed_frame(
 ) -> torch.Tensor:
     """Shape-preserving fixed 2-D FIR over a plain frame (``:415``).
 
-    ``x_ext`` is an (Hp, Wp) frame from :func:`pad_frame`, ``core = (t0,
-    h_img, w_img)``.  The output is a frame again, so chained applies are
-    repeated same-mode filtering without re-padding.  ``scratch``, a
-    separate frame of the same shape, receives the output.
+    ``x_ext`` is an (Hp, Wp) frame from :func:`pad_frame` (a host array
+    goes to the card, :func:`as_image`), ``core = (t0, h_img, w_img)``.
+    The output is a frame again, so chained applies are repeated same-mode
+    filtering without re-padding.  ``scratch``, a separate frame of the
+    same shape, receives the output.
     """
+    x_ext = as_image(x_ext)
     fir = FixedFir2d.from_numpy(h, qformat, x_ext.device)
     require_int32_format(qformat)
     t0, core_h, _ = core
@@ -778,9 +780,11 @@ def fir2d_fixed_frame_overlap(
     """Shape-preserving fixed 2-D FIR over an overlapped frame (``:864``).
 
     The contract of :func:`fir2d_fixed_frame` on the
-    :func:`pad_frame_overlap` layout, for ``1 < Lc <= 97``.  ``digit_mode
+    :func:`pad_frame_overlap` layout, for ``1 < Lc <= 97`` (a host array
+    goes to the card, :func:`as_image`).  ``digit_mode
     ="top"`` rounds each tap row to its top digit (:func:`_top_digit_round`).
     """
+    x_ext = as_image(x_ext)
     fir = FixedFir2d.from_numpy(h, qformat, x_ext.device, digit_mode)
     require_int32_format(qformat)
     taps_r, taps_c = fir.taps
@@ -804,7 +808,8 @@ def fir2d_frame_overlap_bf16(
 ) -> torch.Tensor:
     """The bf16 2-D FIR over an overlapped frame (``:1137``): bit-exact where
     :func:`bf16_2d_exact` holds, SNR-gated otherwise; never dispatched
-    automatically."""
+    automatically.  A host array goes to the card (:func:`as_image`)."""
+    x_ext = as_image(x_ext)
     fir = FixedFir2d.from_numpy(h, qformat, x_ext.device)
     taps_r, taps_c = fir.taps
     stride = _check_overlap(taps_c)

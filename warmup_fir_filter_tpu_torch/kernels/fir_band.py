@@ -293,6 +293,8 @@ fir_band.launches = 0
 def fir1d_fixed_rows_mxu(x_u8: torch.Tensor, h,
                          qformat: QFormat = QFormat()) -> torch.Tensor:
     """Bit-exact fixed FIR over (B, N) uint8 rows, L ≤ 257, on
-    ``x_u8.device``: the JAX ``fir_mxu.py::fir1d_fixed_rows_mxu`` entry
-    (its TPU blocking knobs dropped) over kernel A."""
+    ``x_u8.device`` (a host array goes to the card, ``_build.as_rows``):
+    the JAX ``fir_mxu.py::fir1d_fixed_rows_mxu`` entry (its TPU blocking
+    knobs dropped) over kernel A."""
+    x_u8 = _build.as_rows(x_u8)
     return fir_band(x_u8, FixedFir1d.from_numpy(h, qformat, x_u8.device))

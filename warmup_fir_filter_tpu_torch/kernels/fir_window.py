@@ -260,6 +260,8 @@ fir_window.launches = 0
 def fir1d_fixed_rows_mxu_window(x_u8: torch.Tensor, h,
                                 qformat: QFormat = QFormat()) -> torch.Tensor:
     """Bit-exact fixed FIR over (B, N) uint8 rows, L ≤ 4,096, on
-    ``x_u8.device``: the JAX ``fir_mxu.py::fir1d_fixed_rows_mxu_window``
-    entry (its TPU blocking knobs dropped) over kernel C."""
+    ``x_u8.device`` (a host array goes to the card, ``_build.as_rows``):
+    the JAX ``fir_mxu.py::fir1d_fixed_rows_mxu_window`` entry (its TPU
+    blocking knobs dropped) over kernel C."""
+    x_u8 = _build.as_rows(x_u8)
     return fir_window(x_u8, FixedFirWindow.from_numpy(h, qformat, x_u8.device))

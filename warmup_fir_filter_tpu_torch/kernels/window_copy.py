@@ -101,5 +101,7 @@ window_rows.launches = 0
 def window_rows_pallas(x_u8: torch.Tensor, carry_ext_u8: torch.Tensor,
                        sub: int, g_windows: int) -> torch.Tensor:
     """The JAX ``window_copy.py::window_rows_pallas`` entry (without its
-    ``interpret`` flag): :func:`window_rows`, kernel D."""
-    return window_rows(x_u8, carry_ext_u8, sub, g_windows)
+    ``interpret`` flag): :func:`window_rows`, kernel D, on ``x_u8.device``
+    (host arrays go to the card, ``_build.as_rows``)."""
+    return window_rows(_build.as_rows(x_u8), _build.as_rows(carry_ext_u8),
+                       sub, g_windows)

@@ -4,8 +4,9 @@ Counterpart of ``warmup_fir_filter_tpu/ops/fir1d.py`` (``:34-148``).  Both
 functions run on the device their input tensor lies on:
 
 - :func:`fir1d_fixed_rows_torch` is the bit-exact int32 path (the JAX
-  package's ``"tpu"`` jnp path) and the plain version of the direct-form
-  kernel (``kernels/fir_direct.py``).  Products and sums run in int32 and
+  package's ``"tpu"`` jnp path), the independent reference the tests hold
+  the direct-form kernel and its plain version (``kernels/fir_direct.py``)
+  against.  Products and sums run in int32 and
   wrap mod 2^32 like the reference's; the epilogue runs in int64 so that
   no step of it can overflow.
 - :func:`fir1d_ideal_rows_torch` is the f32 model path, within

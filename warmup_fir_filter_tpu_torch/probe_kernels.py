@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Probe of kernels A (``fir_band``), C (``fir_window``), E (``fir2d_frame``),
+"""Probe of kernels A (``fir_band``), B (``fir_direct``), C (``fir_window``),
+E (``fir2d_frame``),
 F (``fir2d_oframe``), G (``fir2d_bf16``), H (``fir_float``), I
 (``resample``), J (``chain_fused``), K (``fft_rows``), L (``osfilt``) and
 M (``osfilt_stream``) on one GPU.
 
-    python3 warmup_fir_filter_tpu_torch/probe_kernels.py check [chain]
-        ``nvcc -Xptxas -v`` on ``fir_band.cu``, ``fir_window.cu``,
+    python3 warmup_fir_filter_tpu_torch/probe_kernels.py check [chain|direct]
+        ``nvcc -Xptxas -v`` on ``fir_band.cu``, ``fir_direct.cu``,
+        ``fir_window.cu``,
         ``fir2d_frame.cu``, ``fir2d_bf16.cu``, ``fft_rows.cu``,
         ``osfilt.cu``, ``osfilt_stream.cu``, ``fir_float.cu``,
         ``resample.cu`` and ``chain_fused.cu`` (registers, stack and spills
@@ -29,8 +31,13 @@ M (``osfilt_stream``) on one GPU.
         ``rs_bounds`` windows in "highest" (>= 95 dB) and "bf16" (> 60 dB
         against its plain version); exits 1 on a mismatch.  With ``chain``:
         only ``fir_float.cu``, ``resample.cu`` and ``chain_fused.cu``, and
-        only kernels I and J.
-    python3 warmup_fir_filter_tpu_torch/probe_kernels.py times TREE LABEL [chain]
+        only kernels I and J.  With ``direct``: only ``fir_direct.cu``,
+        ``fir_float.cu`` and ``fir_window.cu``, then kernel B against its
+        plain version and the int32 path over 1-8,193 taps x widths x
+        Q-formats x chunk lengths and against kernels A and C at 19,456 x
+        8,192, kernel H against its plain version at every alignment, and
+        kernel C's grid.
+    python3 warmup_fir_filter_tpu_torch/probe_kernels.py times TREE LABEL [chain|direct]
         CUDA-event medians (7 windows of 10 calls) at BASELINE config 5's
         shapes of kernel I (32 x 2,000,000, 2/3, 63 taps) and its
         ``F.conv1d`` yardstick, kernel H (32 x 1,333,334, 63 taps), kernel
@@ -49,7 +56,10 @@ M (``osfilt_stream``) on one GPU.
         u8 in and out), kernel L over the stream framed at nfft 2,048,
         ``F.conv1d`` (TF32 off) and the ``torch.fft`` overlap-save, for the
         port in the checkout at TREE (this one, or an older commit unpacked
-        with ``git archive``), each line tagged LABEL.
+        with ``git archive``), each line tagged LABEL.  With ``direct``:
+        only kernel B at 19,456 x 8,192 u8 for 5, 1,001, 4,097 and 8,193
+        taps of ``design_lowpass(L, 0.25)``, Q4.12, with its outputs'
+        SHA-256, and kernels C at 4,096 taps and A at 5 beside it.
     python3 warmup_fir_filter_tpu_torch/probe_kernels.py variant TREE LABEL
         For a variant of the FFT kernels' sources in the checkout at TREE:
         ``-Xptxas -v`` of ``fft_rows.cu``, ``osfilt.cu`` and
@@ -79,10 +89,15 @@ STREAM_CASES = ((3, 2000, 63, 0), (2, 1111, 63, 31), (1, 700, 5, 0),
                 (2, 3000, 2, 0), (2, 3000, 129, 0), (2, 3000, 257, 0),
                 (2, 449, 63, 0), (2, 450, 63, 0), (2, 451, 63, 0),
                 (2, 3000, 63, 31), (2, 3000, 63, 62))
-PTXAS_SOURCES = ("fir_band.cu", "fir_window.cu", "fir2d_frame.cu",
-                 "fir2d_bf16.cu", "fft_rows.cu", "osfilt.cu", "osfilt_stream.cu",
-                 "fir_float.cu", "resample.cu", "chain_fused.cu")
+PTXAS_SOURCES = ("fir_band.cu", "fir_direct.cu", "fir_window.cu",
+                 "fir2d_frame.cu", "fir2d_bf16.cu", "fft_rows.cu", "osfilt.cu",
+                 "osfilt_stream.cu", "fir_float.cu", "resample.cu",
+                 "chain_fused.cu")
 CHAIN_SOURCES = ("fir_float.cu", "resample.cu", "chain_fused.cu")
+DIRECT_SOURCES = ("fir_direct.cu", "fir_float.cu", "fir_window.cu")
+#: Kernel B's tap counts in ``check direct``: each side of the short
+#: route's 32 taps, of kernel C's 4,096, and several chunks.
+DIRECT_CHECK_TAPS = (1, 5, 32, 33, 258, 1001, 4096, 4097, 5000, 8193)
 #: The instructions counted in each kernel's SASS: tensor-core products,
 #: shared-memory loads and f32 FMAs.
 SASS_OPS = ("IMMA", "HMMA", "LDS", "FFMA")
@@ -337,7 +352,102 @@ def check_chain(rng) -> int:
     return fails + fj
 
 
-def check(chain_only: bool = False) -> int:
+def check_direct(rng) -> int:
+    """Kernel B against its plain version on the card (float64 products)
+    and the independent int32 path over DIRECT_CHECK_TAPS x widths 1-40,000
+    x Q-formats (wrapping ones among them) x chunk lengths 64, 2,048 and
+    4,096, inputs at byte offsets; against kernel A at 5 taps and kernel C
+    at 258 and 4,096 taps on 19,456 x 8,192 (``torch.equal``); kernel H
+    against its float64 plain version (SNR >= 120 dB) over taps 1-257 x
+    widths 1-40,001, u8 and f32, rows at every alignment.  Returns the
+    failures."""
+    import numpy as np
+    import torch
+
+    from warmup_fir_filter_tpu_torch.kernels.fir_band import FixedFir1d
+    from warmup_fir_filter_tpu_torch.kernels.fir_direct import (
+        FixedFirDirect, fir_direct_plain)
+    from warmup_fir_filter_tpu_torch.kernels.fir_float import (
+        FloatFir1d, fir_float, fir_float_plain)
+    from warmup_fir_filter_tpu_torch.kernels.fir_window import FixedFirWindow
+    from warmup_fir_filter_tpu_torch.ops.fir1d import fir1d_fixed_rows_torch
+    from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
+    from warmup_fir_filter_tpu_torch.ops.resample import design_lowpass
+
+    fails = count = 0
+    formats = ((16, 12, 32), (16, 12, 20), (8, 7, 16), (32, 12, 28),
+               (32, 24, 32))
+    for i, taps in enumerate(DIRECT_CHECK_TAPS):
+        for j, n in enumerate((1, 17, 511, 513, 4499, 40000)):
+            qf = QFormat(*formats[(i + j) % len(formats)])
+            span = min(qf.max_coeff_real, 8.0)
+            h = np.clip(rng.uniform(-span, span, taps),
+                        max(qf.min_coeff_real, -8), span)
+            if taps > 64:
+                h /= 64
+            chunk = (64, 2048, 4096)[(i + 2 * j) % 3]
+            fir = FixedFirDirect(h, qf, "cuda", chunk_taps=chunk)
+            x = torch.from_numpy(rng.integers(0, 256, size=(3, n),
+                                              dtype=np.uint8)).cuda()
+            got = fir(x)
+            count += 1
+            for name, want in (("plain", fir_direct_plain(x, fir)),
+                               ("int32", fir1d_fixed_rows_torch(x, h, qf))):
+                if not torch.equal(got, want):
+                    fails += 1
+                    print("B MISMATCH", name, taps, n, qf, chunk,
+                          int((got != want).sum()))
+    buf = torch.from_numpy(rng.integers(0, 256, size=5 * 1001 + 16,
+                                        dtype=np.uint8)).cuda()
+    for taps in (5, 300):
+        fir = FixedFirDirect(design_lowpass(taps, 0.2), QFormat(), "cuda",
+                             chunk_taps=128)
+        for off in (1, 2, 3, 7, 15):
+            x = buf[off:off + 5 * 1001].view(5, 1001)
+            count += 1
+            if not torch.equal(fir(x), fir_direct_plain(x, fir)):
+                fails += 1
+                print("B MISALIGNED MISMATCH", taps, off)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randint(0, 256, (19456, 8192), dtype=torch.uint8,
+                      device="cuda", generator=gen)
+    qf = QFormat()
+    for taps, other in ((5, FixedFir1d), (258, FixedFirWindow),
+                        (4096, FixedFirWindow)):
+        h = design_lowpass(taps, 0.2)
+        count += 1
+        if not torch.equal(FixedFirDirect(h, qf, "cuda")(x),
+                           other.from_numpy(h, qf, "cuda")(x)):
+            fails += 1
+            print("B MISMATCH against", other.__name__, taps)
+    del x
+    torch.cuda.synchronize()
+    print(f"[B] {count} comparisons, {fails} mismatches", flush=True)
+
+    fh, worst = 0, 999.0
+    for taps in (1, 2, 5, 9, 10, 63, 64, 129, 257):
+        fir = FloatFir1d(rng.standard_normal(taps) / np.sqrt(taps), "cuda")
+        for n in (1, 17, 2304, 2305, 40001):
+            for dtype in (torch.uint8, torch.float32):
+                size = 3 * n + 16
+                if dtype == torch.uint8:
+                    flat = torch.randint(0, 256, (size,), dtype=dtype,
+                                         device="cuda", generator=gen)
+                else:
+                    flat = torch.randn(size, device="cuda", generator=gen)
+                for off in (0, 1, 2, 3):
+                    x = flat[off:off + 3 * n].view(3, n)
+                    snr = snr_db(fir_float_plain(x, fir), fir_float(x, fir))
+                    worst = min(worst, snr)
+                    if not snr >= 120:
+                        fh += 1
+                        print("H FAIL", taps, n, dtype, off, snr)
+    torch.cuda.synchronize()
+    print(f"[H] min SNR {worst:.1f} dB, {fh} failures", flush=True)
+    return fails + fh
+
+
+def check(mode: str | None = None) -> int:
     import numpy as np
     import torch
 
@@ -351,15 +461,19 @@ def check(chain_only: bool = False) -> int:
     from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
     from warmup_fir_filter_tpu_torch.ops.resample import design_lowpass
 
-    if ptxas("check", CHAIN_SOURCES if chain_only else PTXAS_SOURCES):
+    sources = {"chain": CHAIN_SOURCES,
+               "direct": DIRECT_SOURCES}.get(mode, PTXAS_SOURCES)
+    if ptxas("check", sources):
         return 1
     t0 = time.perf_counter()
     _build.load_library()
     print(f"[build] {time.perf_counter() - t0:.2f} s")
 
     rng = np.random.default_rng(1)
-    if chain_only:
+    if mode == "chain":
         return 1 if check_chain(rng) else 0
+    if mode == "direct":
+        return 1 if check_direct(rng) + check_window(rng) else 0
     fails = 0
     count = 0
     for fmt in ((16, 12, 32), (16, 12, 20), (8, 7, 16), (32, 12, 28)):
@@ -633,10 +747,11 @@ def check_frames(rng) -> int:
 def time_chain(label: str, report) -> None:
     """Config 5's shapes: kernel I on the stacked 32 x 2,000,000 planes and
     its ``F.conv1d`` yardstick, kernel H on the 32 x 1,333,334 resampled
-    planes, kernel J on 16 x 2,000,000 I/Q in "highest" and "bf16", and
-    ``chain_forward`` "auto" and staged "mxu"; then the SHA-256 of I's and
-    J's outputs, so that two trees' bytes can be compared; then I and J at
-    RATE_TIMINGS, with their outputs' SHA-256."""
+    planes and on u8 rows of that shape, kernel J on 16 x 2,000,000 I/Q in
+    "highest" and "bf16", and ``chain_forward`` "auto" and staged "mxu";
+    then the SHA-256 of I's, H's (both sample types) and J's outputs, so
+    that two trees' bytes can be compared; then I and J at RATE_TIMINGS,
+    with their outputs' SHA-256."""
     import hashlib
 
     import torch
@@ -665,6 +780,8 @@ def time_chain(label: str, report) -> None:
     chain16 = FusedChain(h_rs, h_ch, 2, 3, cfg.demod_k_f, precision="bf16",
                          device="cuda")
     re16, im16 = re.bfloat16(), im.bfloat16()
+    both_u8 = torch.randint(0, 256, tuple(both.shape), dtype=torch.uint8,
+                            device="cuda", generator=gen)
     weight, pad = conv1d_resampler(rs)
     conv_snr = snr_db(resample_plain(x[:2], rs),
                       conv1d_resample(x[:2], weight, pad, rs))
@@ -675,17 +792,20 @@ def time_chain(label: str, report) -> None:
         "I conv1d yardstick (pad, F.conv1d, interleave; TF32 off)":
             lambda: conv1d_resample(x, weight, pad, rs),
         "H 32x1333334 63 taps": lambda: fir_float(both, fir),
+        "H u8 32x1333334 63 taps": lambda: fir_float(both_u8, fir),
         "J 16x2000000 highest": lambda: chain_fused(re, im, chain),
         "J 16x2000000 bf16": lambda: chain_fused(re16, im16, chain16),
         "chain_forward auto": lambda: chain_forward(re, im, cfg),
         "chain_forward staged mxu": lambda: chain_forward(re, im, staged),
     })
     for name, out in (("I", resample(x, rs)),
+                      ("H", fir_float(both, fir)),
+                      ("H u8", fir_float(both_u8, fir)),
                       ("J highest", chain_fused(re, im, chain)),
                       ("J bf16", chain_fused(re16, im16, chain16))):
         digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
         print(f"[{label}] sha256 {name}: {digest}", flush=True)
-    del both
+    del both, both_u8
     runs, outs = {}, {}
     for up, down in RATE_TIMINGS:
         cfg_r = ChainConfig(resample_up=up, resample_down=down)
@@ -705,7 +825,81 @@ def time_chain(label: str, report) -> None:
         print(f"[{label}] sha256 {name}: {digest}", flush=True)
 
 
-def times(tree: str, label: str, chain_only: bool = False) -> None:
+#: Kernel B's tap counts in ``times ... direct``: the main path's short
+#: route, and past kernel C's 4,096 taps, where B is the only route.
+DIRECT_TIMING_TAPS = (5, 1001, 4097, 8193)
+#: Fixed chunk lengths kernel B is timed at beside its own choice.
+DIRECT_CHUNK_VARIANTS = (1024, 2048, 4096)
+
+
+def time_direct(label: str) -> None:
+    """Kernel B (``FixedFirDirect``) at 19,456 x 8,192 u8 with
+    ``design_lowpass(L, 0.25)`` quantized Q4.12 (``bench_taps.py``'s
+    filter) for DIRECT_TIMING_TAPS, kernel C at 4,096 taps and kernel A at
+    5 beside it, each output's SHA-256 (B's against the parent's: the same
+    bytes), and B against C and A with ``torch.equal``."""
+    import hashlib
+
+    import torch
+
+    from warmup_fir_filter_tpu_torch.kernels.fir_band import FixedFir1d
+    from warmup_fir_filter_tpu_torch.kernels.fir_direct import FixedFirDirect
+    from warmup_fir_filter_tpu_torch.kernels.fir_window import FixedFirWindow
+    from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
+    from warmup_fir_filter_tpu_torch.ops.resample import design_lowpass
+
+    qf = QFormat()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randint(0, 256, (19456, 8192), dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    for taps in DIRECT_TIMING_TAPS:
+        h = design_lowpass(taps, 0.25)
+        fir = FixedFirDirect(h, qf, "cuda")
+        first = fir(x)
+        torch.cuda.synchronize()
+        one = median_ms(lambda f=fir: f(x), reps=1, calls=1)[0]
+        # A few calls where one takes tens of ms or more (the parent).
+        reps, calls = (7, 10) if one < 5.0 else (3, 1)
+        m, lo, hi = median_ms(lambda f=fir: f(x), reps=reps, calls=calls)
+        digest = hashlib.sha256(first.cpu().numpy().tobytes()).hexdigest()
+        print(f"[{label}] B {taps} taps 19456x8192: median {m:.4f} ms (min "
+              f"{lo:.4f}, max {hi:.4f}; {reps}x{calls} calls) sha256 "
+              f"{digest}", flush=True)
+        others = {}
+        if taps == 5:
+            others["A"] = FixedFir1d.from_numpy(h, qf, "cuda")
+        if taps == 4097:
+            h_c = design_lowpass(4096, 0.25)
+            others["C 4096"] = FixedFirWindow.from_numpy(h_c, qf, "cuda")
+        for name, other in others.items():
+            m, lo, hi = median_ms(lambda f=other: f(x))
+            print(f"[{label}] {name} 19456x8192: median {m:.4f} ms (min "
+                  f"{lo:.4f}, max {hi:.4f})", flush=True)
+        if taps > 4096:
+            # Fixed chunk lengths beside pick_chunks' (a tree whose kernel B
+            # takes no chunk length skips them).
+            for chunk in DIRECT_CHUNK_VARIANTS:
+                try:
+                    var = FixedFirDirect(h, qf, "cuda", chunk_taps=chunk)
+                except TypeError:
+                    break
+                m, lo, hi = median_ms(lambda f=var: f(x))
+                same = torch.equal(var(x), first)
+                print(f"[{label}] B {taps} taps chunk {chunk}: median "
+                      f"{m:.4f} ms (min {lo:.4f}, max {hi:.4f}), equal "
+                      f"{same}", flush=True)
+        if taps == 5:
+            print(f"[{label}] B == A at 5 taps: "
+                  f"{torch.equal(first, others['A'](x))}", flush=True)
+        if taps == 4097:
+            b_4096 = FixedFirDirect(h_c, qf, "cuda")(x)
+            print(f"[{label}] B == C at 4096 taps: "
+                  f"{torch.equal(b_4096, others['C 4096'](x))}", flush=True)
+            del b_4096
+        del first, others
+
+
+def times(tree: str, label: str, mode: str | None = None) -> None:
     root = os.path.abspath(tree)
     sys.path.insert(0, root)
     os.chdir(root)
@@ -729,6 +923,10 @@ def times(tree: str, label: str, chain_only: bool = False) -> None:
     from warmup_fir_filter_tpu_torch.ops.resample import design_lowpass
 
     torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(f"[{label}] card {card.strip()}", flush=True)
     t0 = time.perf_counter()
     _build.load_library()
     print(f"[{label}] build {time.perf_counter() - t0:.2f} s", flush=True)
@@ -739,8 +937,11 @@ def times(tree: str, label: str, chain_only: bool = False) -> None:
             print(f"[{label}] {name}: median {m:.4f} ms (min {lo:.4f}, "
                   f"max {hi:.4f})", flush=True)
 
+    if mode == "direct":
+        time_direct(label)
+        return
     time_chain(label, report)
-    if chain_only:
+    if mode == "chain":
         return
     gen = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randint(0, 256, (19456, 8192), dtype=torch.uint8, device="cuda",
@@ -886,10 +1087,11 @@ def variant(tree: str, label: str) -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] in (["check"], ["check", "chain"]):
-        sys.exit(check(sys.argv[2:] == ["chain"]))
-    if sys.argv[1:2] == ["times"] and len(sys.argv) in (4, 5):
-        times(sys.argv[2], sys.argv[3], sys.argv[4:] == ["chain"])
+    if sys.argv[1:] in (["check"], ["check", "chain"], ["check", "direct"]):
+        sys.exit(check((sys.argv[2:] or [None])[0]))
+    if sys.argv[1:2] == ["times"] and (
+            len(sys.argv) == 4 or sys.argv[4:] in (["chain"], ["direct"])):
+        times(sys.argv[2], sys.argv[3], (sys.argv[4:] or [None])[0])
         sys.exit(0)
     if sys.argv[1:2] == ["variant"] and len(sys.argv) == 4:
         variant(sys.argv[2], sys.argv[3])
