@@ -113,9 +113,35 @@ of them pass:
             8,192 × 2,048, 1,024 × 16,384 and 65,536 × 256), L and M,
             their plain versions, ``torch.fft.fft``, ``F.conv1d`` (TF32
             off), the ``torch.fft`` overlap-save and a ``copy_``.
+14. parallel the ``parallel/`` entries in a world of 1 (a real NCCL group
+            from ``initialize_multihost``, meshes {"data": 1, "time": 1}
+            and {"stage": 1}) at full width: config 4 through
+            ``fir_overlap_save_sharded(backend="pallas")`` (kernel M; > 70
+            dB against the float64 FIR, within 2e-2 of the unsharded
+            call) and a 259-tap filter on its first 1,000,000 samples
+            (kernel L); ``fir1d_fixed_sharded`` at 19,456 × 8,192 (kernel
+            A), ``fir2d_fixed_sharded`` at 8192² sharpen5 (kernel F) and
+            a random 3 × 129 filter (kernel E), the
+            ``channel_to_time``/``time_to_channel`` round trip, the 5-tap
+            bank through ``filter_bank_fixed_sharded`` and
+            ``spmd_pipeline`` (kernel A), ``chain_forward_sharded`` and
+            ``chain_forward_time_sharded`` on config 5 cut to 16 ×
+            1,999,872 (kernel J), each ``torch.equal`` to the unsharded
+            call; then four emulated time shards (2 × 2 for the 2-D FIR),
+            each extended block sliced from the global tensor with zero
+            edges, through the entries' shard-local steps: config 4
+            through kernel M at ``off = 31`` under the same gates, and
+            kernels A, F and J ``torch.equal`` to their unsharded calls;
+            ``PipelinedChain`` over config 5 in eight microbatches
+            (resample, channelizer, demod on three CUDA streams),
+            pipelined equal to ``force_sequential``, both wall times
+            printed; CUDA-event medians of each sharded call beside the
+            unsharded one.  Multi-rank exchange over NCCL needs a card a
+            rank: ``tests/test_torch_parallel_worker.py worlds cuda``
+            runs it on four.
 
-Launch counts are zeroed just before each main path (phases 4-8, 11 and
-13) and read just after it.  Then one JSON line for the kernels (each with its
+Launch counts are zeroed just before each main path (phases 4-8, 11, 13
+and 14) and read just after it.  Then one JSON line for the kernels (each with its
 time, its plain version's, its bound at the card's published peaks and,
 where one PyTorch call computes the same function, that call's time), the
 card line, and as the last line ``{"ok": true, "device": {...}}``.  Inputs
@@ -127,6 +153,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -135,18 +162,21 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.cli import main as cli_main
 from warmup_fir_filter_tpu_torch.kernels.chain_fused import (
     FusedChain,
+    chain_forward_fused,
     chain_fused,
     chain_fused_plain,
 )
 from warmup_fir_filter_tpu_torch.kernels.dispatch import (
     fir1d_fixed_rows_auto,
     fir2d_fixed_auto,
+    prepare_fixed_fir2d,
 )
 from warmup_fir_filter_tpu_torch.kernels.fft import (
     STREAM_NFFT,
@@ -212,7 +242,13 @@ from warmup_fir_filter_tpu_torch.kernels.window_copy import (
     window_rows,
     window_rows_plain,
 )
-from warmup_fir_filter_tpu_torch.models.chain import ChainConfig, chain_forward
+from warmup_fir_filter_tpu_torch.models.chain import (
+    ChainConfig,
+    _chain_time_local,
+    chain_forward,
+    chain_forward_sharded,
+    chain_forward_time_sharded,
+)
 from warmup_fir_filter_tpu_torch.models.filters import FILTER_BANKS
 from warmup_fir_filter_tpu_torch.models.golden import fir1d_fixed_golden_rows
 from warmup_fir_filter_tpu_torch.ops.demod import fm_demodulate, fm_modulate
@@ -240,6 +276,27 @@ from warmup_fir_filter_tpu_torch.ops.streaming import (
     host_emit_checksums,
     pick_window_split,
     stream_scanned,
+)
+from warmup_fir_filter_tpu_torch.parallel import (
+    PipelinedChain,
+    channel_to_time,
+    filter_bank_fixed_sharded,
+    fir1d_fixed_sharded,
+    fir2d_fixed_sharded,
+    fir_overlap_save_sharded,
+    initialize_multihost,
+    make_mesh,
+    spmd_pipeline,
+    time_to_channel,
+)
+from warmup_fir_filter_tpu_torch.parallel.fft_sharded import (
+    LocalOverlapSave,
+    _overlap_save_local,
+)
+from warmup_fir_filter_tpu_torch.parallel.halo import (
+    _fir1d_local,
+    _fir2d_local,
+    _margins_2d,
 )
 from warmup_fir_filter_tpu_torch.pipeline.artifacts import (
     ArtifactStore,
@@ -434,6 +491,21 @@ FFT_TIMING_SHAPES = ((8192, 2048), (1024, 16384), (65536, 256))
 FFT_TIMING_REPS = 7
 FFT_TIMING_LAUNCHES = 5
 PLAIN_FFT_CALLS = 2
+#: Phase 14: the parallel/ entries in a world of 1 and PARALLEL_SHARDS
+#: emulated time shards.  Config 5 is cut to 1,999,872 samples so that
+#: each of four shards (499,968 = 192·2,604) keeps the polyphase phase
+#: and the 128-tile output grid; the 259-tap overlap-save (kernel L, past
+#: kernel M's 257) runs on the first PARALLEL_LONG_TIME samples of config
+#: 4; the pipeline splits config 5 into microbatches of two channels.
+PARALLEL_SHARDS = 4
+PARALLEL_CHAIN_TIME = 1_999_872
+PARALLEL_HALO_MULT = 4
+PARALLEL_LONG_TAPS = 259
+PARALLEL_LONG_TIME = 1_000_000
+PARALLEL_MICROBATCHES = 8
+PARALLEL_SPMD_MICROBATCHES = 8
+PARALLEL_TIMING_REPS = 5
+PARALLEL_TIMING_CALLS = 3
 
 
 def phase(name: str) -> None:
@@ -2062,6 +2134,329 @@ def time_fft(card: str, agree: dict, x_u8: torch.Tensor, x: torch.Tensor,
     return result
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def shard_blocks(x: torch.Tensor, shards: int, left: int, right: int,
+                 dim: int) -> list[torch.Tensor]:
+    """Each shard's extended block along ``dim`` of a 2-D tensor, sliced
+    from the global tensor with zero edges at its ends: what the halo ring
+    delivers."""
+    width = x.shape[dim] // shards
+    xp = F.pad(x, (left, right) if dim == 1 else (0, 0, left, right))
+    return [xp.narrow(dim, i * width, width + left + right).contiguous()
+            for i in range(shards)]
+
+
+class Phase14:
+    """Phase 14's runs, each between a zeroing and a reading of the launch
+    counts, and its gates."""
+
+    def __init__(self):
+        self.counts, self.result = {}, {}
+
+    def launched(self, run: str, fn):
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        self.counts[run] = launch_counts()
+        return out
+
+    def only(self, run: str, name: str, at_least: int) -> None:
+        only(self.counts[run], name, at_least, f"phase 14 {run}")
+
+    def equal(self, run: str, got: torch.Tensor, want: torch.Tensor) -> None:
+        same = bool(torch.equal(got, want))
+        self.result[f"{run}_equal"] = same
+        if not same:
+            differ = got.shape == want.shape and int((got != want).sum())
+            raise AssertionError(f"phase 14 {run}: not equal to the "
+                                 f"unsharded call ({differ} values differ)")
+
+    def config4(self, run: str, got: torch.Tensor, want: torch.Tensor,
+                ideal: torch.Tensor) -> None:
+        """Phase 13's gates: > 70 dB against the float64 FIR, within 2e-2
+        of the unsharded call (tests/test_expert_fft_sharded.py:65)."""
+        snr = snr_on_card(ideal, got)
+        err = float((got - want).abs().max())
+        self.result[f"{run}_snr_db_vs_ideal"] = snr
+        self.result[f"{run}_max_abs_vs_unsharded"] = err
+        if not (snr > 70.0 and err <= 2e-2):
+            raise AssertionError(f"phase 14 {run}: {snr:.1f} dB, max |diff| "
+                                 f"{err:.3g} against the unsharded call")
+
+
+def run_parallel(card: str, x4: torch.Tensor, h4: np.ndarray,
+                 fm: tuple) -> tuple[dict, dict, dict]:
+    """Phase 14: the ``parallel/`` entries through a world of 1 (a real
+    NCCL group) at full width, the shard-local steps over PARALLEL_SHARDS
+    emulated time shards, ``PipelinedChain`` over config 5, and the
+    sharded calls' CUDA-event medians beside the unsharded ones."""
+    p = Phase14()
+    qf = QFormat()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    x1 = torch.randint(0, 256, BENCH_SHAPE, dtype=torch.uint8, device="cuda",
+                       generator=gen)
+    h5 = np.asarray(FILTER_BANKS[5]["sharpen"])
+    fir5 = FixedFir1d.from_numpy(h5, qf, "cuda")
+    want1 = fir5(x1)
+    bank = np.asarray([FILTER_BANKS[5][name] for name in
+                       ("moving_avg", "simple_lp", "edge", "sharpen")])
+    x2 = torch.from_numpy(np.random.default_rng(FRAME_SEED).integers(
+        0, 256, size=(FRAME_SIZE, FRAME_SIZE), dtype=np.uint8)).cuda()
+    h2 = np.asarray(FILTER_BANK_2D["sharpen5"])
+    want2 = fir2d_fixed_auto(x2, h2)
+    h2_e = random_taps_2d(np.random.default_rng(CONFIG3_SEED),
+                          E_TIMING_SHAPES[0])
+    cfg = ChainConfig()
+    up, down = cfg.resample_up, cfg.resample_down
+    re, im = (plane[:, :PARALLEL_CHAIN_TIME].contiguous() for plane in fm)
+    fused_args = (cfg.resample_filter(), cfg.channelizer_filter(), up, down,
+                  cfg.demod_k_f)
+    want_fused = chain_forward_fused(re, im, *fused_args)
+    want4 = fir_overlap_save_pallas(x4, h4)
+    ideal4 = ideal_fir64(x4, h4)
+    x_long = x4[:, :PARALLEL_LONG_TIME].contiguous()
+    h_long = design_lowpass(PARALLEL_LONG_TAPS, 0.25)
+
+    if not initialize_multihost(
+            coordinator_address=f"127.0.0.1:{free_port()}", num_processes=1,
+            process_id=0, device="cuda"):
+        raise AssertionError("initialize_multihost made no process group")
+    try:
+        mesh = make_mesh({"data": 1, "time": 1})
+        stage_mesh = make_mesh({"stage": 1})
+        print(f"[chip_smoke] parallel: world {dist.get_world_size()} "
+              f"({dist.get_backend()}), meshes {mesh} and {stage_mesh}",
+              flush=True)
+
+        # A world of 1 through the public entries, at full width.
+        y = p.launched("parallel_config4", lambda: fir_overlap_save_sharded(
+            x4, h4, mesh=mesh, backend="pallas").to_local())
+        p.only("parallel_config4", "osfilt_stream", 1)
+        p.config4("parallel_config4", y, want4, ideal4)
+        del y
+        want_long = fir_overlap_save_pallas(x_long, h_long)
+        y = p.launched("parallel_config4_259tap",
+                       lambda: fir_overlap_save_sharded(
+                           x_long, h_long, mesh=mesh,
+                           backend="pallas").to_local())
+        p.only("parallel_config4_259tap", "osfilt", 1)
+        p.config4("parallel_config4_259tap", y, want_long,
+                  ideal_fir64(x_long, h_long))
+
+        y = p.launched("parallel_fir1d", lambda: fir1d_fixed_sharded(
+            x1, h5, mesh=mesh).to_local())
+        p.only("parallel_fir1d", "fir_band", 1)
+        p.equal("parallel_fir1d", y, want1)
+
+        y = p.launched("parallel_fir2d", lambda: fir2d_fixed_sharded(
+            x2, h2, mesh=mesh).to_local())
+        p.only("parallel_fir2d", "fir2d_oframe", 1)
+        p.equal("parallel_fir2d", y, want2)
+        y = p.launched("parallel_fir2d_e", lambda: fir2d_fixed_sharded(
+            x2, h2_e, mesh=mesh).to_local())
+        p.only("parallel_fir2d_e", "fir2d_frame", 1)
+        p.equal("parallel_fir2d_e", y, fir2d_fixed_auto(x2, h2_e))
+
+        back = p.launched("parallel_reshard", lambda: time_to_channel(
+            channel_to_time(x1, mesh=mesh, axis="time"), mesh=mesh,
+            axis="time").to_local())
+        p.equal("parallel_reshard", back, x1)
+        del back
+
+        y = p.launched("parallel_bank", lambda: filter_bank_fixed_sharded(
+            x1, bank, mesh=mesh, expert_axis="data").to_local())
+        p.only("parallel_bank", "fir_band", len(bank))
+        for f, h in enumerate(bank):
+            p.equal(f"parallel_bank_{f}", y[f],
+                    FixedFir1d.from_numpy(h, qf, "cuda")(x1))
+        del y
+
+        stage_firs = [FixedFir1d.from_numpy(h, qf, "cuda") for h in bank]
+        mb = x1.reshape(PARALLEL_SPMD_MICROBATCHES, -1, x1.shape[1])
+        y = p.launched("parallel_spmd", lambda: spmd_pipeline(
+            lambda s, x: stage_firs[s](x), mb, mesh=stage_mesh).to_local())
+        p.only("parallel_spmd", "fir_band", len(mb))
+        want = mb
+        for fir in stage_firs[: stage_mesh.size()]:
+            want = torch.stack([fir(m) for m in want])
+        p.equal("parallel_spmd", y, want)
+        del y, want
+
+        y = p.launched("parallel_chain", lambda: chain_forward_sharded(
+            re, im, cfg, mesh=mesh).to_local())
+        p.only("parallel_chain", "chain_fused", 1)
+        p.equal("parallel_chain", y, chain_forward(re, im, cfg))
+        y = p.launched("parallel_chain_time",
+                       lambda: chain_forward_time_sharded(
+                           re, im, cfg, mesh=mesh,
+                           halo_mult=PARALLEL_HALO_MULT).to_local())
+        p.only("parallel_chain_time", "chain_fused", 1)
+        p.equal("parallel_chain_time", y, want_fused)
+
+        times = time_parallel(card, {
+            "config4": (lambda: fir_overlap_save_sharded(
+                            x4, h4, mesh=mesh, backend="pallas"),
+                        lambda: fir_overlap_save_pallas(x4, h4)),
+            "config4_259tap": (lambda: fir_overlap_save_sharded(
+                                   x_long, h_long, mesh=mesh,
+                                   backend="pallas"),
+                               lambda: fir_overlap_save_pallas(x_long,
+                                                               h_long)),
+            "fir1d": (lambda: fir1d_fixed_sharded(x1, h5, mesh=mesh),
+                      lambda: fir1d_fixed_rows_auto(x1, h5)),
+            "fir2d": (lambda: fir2d_fixed_sharded(x2, h2, mesh=mesh),
+                      lambda: fir2d_fixed_auto(x2, h2)),
+            "fir2d_e": (lambda: fir2d_fixed_sharded(x2, h2_e, mesh=mesh),
+                        lambda: fir2d_fixed_auto(x2, h2_e)),
+            "bank": (lambda: filter_bank_fixed_sharded(x1, bank, mesh=mesh),
+                     lambda: [fir1d_fixed_rows_auto(x1, h) for h in bank]),
+            "reshard_round_trip": (
+                lambda: time_to_channel(channel_to_time(
+                    x1, mesh=mesh, axis="time"), mesh=mesh, axis="time"),
+                lambda: x1.clone()),
+            "spmd": (lambda: spmd_pipeline(lambda s, x: stage_firs[s](x), mb,
+                                           mesh=stage_mesh),
+                     lambda: [stage_firs[0](m) for m in mb]),
+            "chain": (lambda: chain_forward_sharded(re, im, cfg, mesh=mesh),
+                      lambda: chain_forward(re, im, cfg)),
+            "chain_time": (lambda: chain_forward_time_sharded(
+                               re, im, cfg, mesh=mesh,
+                               halo_mult=PARALLEL_HALO_MULT),
+                           lambda: chain_forward_fused(re, im, *fused_args)),
+        })
+    finally:
+        dist.destroy_process_group()
+    del x_long, want_long
+
+    # PARALLEL_SHARDS emulated time shards through the shard-local steps.
+    shards = PARALLEL_SHARDS
+    left4 = CONFIG4_TAPS - 1 - CONFIG4_TAPS // 2
+    plan = LocalOverlapSave.prepare(h4, None, "pallas", torch.device("cuda"))
+    blocks = shard_blocks(x4, shards, left4, CONFIG4_TAPS // 2, 1)
+    y = p.launched("parallel_config4_shards", lambda: torch.cat([
+        _overlap_save_local(b, plan, x4.shape[1] // shards) for b in blocks],
+        dim=1))
+    p.only("parallel_config4_shards", "osfilt_stream", shards)
+    p.config4("parallel_config4_shards", y, want4, ideal4)
+    del blocks, y, want4, ideal4
+
+    y = p.launched("parallel_fir1d_shards", lambda: torch.cat([
+        _fir1d_local(b, fir5, 2, 2)
+        for b in shard_blocks(x1, shards, 2, 2, 1)], dim=1))
+    p.only("parallel_fir1d_shards", "fir_band", shards)
+    p.equal("parallel_fir1d_shards", y, want1)
+
+    margins = top, bottom, left, right = _margins_2d(*h2.shape)
+    fir2 = prepare_fixed_fir2d(h2, qf, "cuda")
+    y = p.launched("parallel_fir2d_shards", lambda: torch.cat([
+        torch.cat([_fir2d_local(b, fir2, margins)
+                   for b in shard_blocks(rows, 2, left, right, 1)], dim=1)
+        for rows in shard_blocks(x2, 2, top, bottom, 0)], dim=0))
+    p.only("parallel_fir2d_shards", "fir2d_oframe", 4)
+    p.equal("parallel_fir2d_shards", y, want2)
+
+    h_in = 128 * down * PARALLEL_HALO_MULT
+    h_out = 128 * up * PARALLEL_HALO_MULT
+    out_local = PARALLEL_CHAIN_TIME // shards * up // down
+    fused = FusedChain(*fused_args, precision=cfg.fused_precision,
+                       device="cuda")
+    planes = list(zip(shard_blocks(re, shards, h_in, h_in, 1),
+                      shard_blocks(im, shards, h_in, h_in, 1)))
+    y = p.launched("parallel_chain_time_shards", lambda: torch.cat([
+        _chain_time_local(re_b, im_b, fused,
+                          (h_out - s * out_local,
+                           h_out + out_local * (shards - s)),
+                          h_out, out_local, first=s == 0)
+        for s, (re_b, im_b) in enumerate(planes)], dim=1))
+    p.only("parallel_chain_time_shards", "chain_fused", shards)
+    p.equal("parallel_chain_time_shards", y, want_fused)
+    del planes, y
+
+    p.result.update(run_pipelined_chain(p, fm, cfg, card))
+    p.result["launches"] = p.counts
+    print(f"[chip_smoke] parallel {json.dumps(p.result)}", flush=True)
+    return p.counts, p.result, times
+
+
+def run_pipelined_chain(p: Phase14, fm: tuple, cfg: ChainConfig,
+                        card: str) -> dict:
+    """``PipelinedChain`` over config 5 in microbatches of two channels
+    (I/Q stacked as four rows): resample (kernel I), channelizer (kernel
+    H), demod, each stage on its own CUDA stream; pipelined and
+    ``force_sequential`` results equal, both wall times printed."""
+    up, down = cfg.resample_up, cfg.resample_down
+    rs = PolyphaseResampler(cfg.resample_filter(), up, down, "cuda")
+    ch = FloatFir1d(cfg.channelizer_filter(), "cuda")
+    pipe = PipelinedChain([
+        lambda x: resample(x, rs),
+        lambda x: fir_float(x, ch),
+        lambda x: fm_demodulate(x[: x.shape[0] // 2], x[x.shape[0] // 2:],
+                                cfg.demod_k_f)])
+    step = CONFIG5_CHANNELS // PARALLEL_MICROBATCHES
+    batches = [torch.cat([plane[c : c + step] for plane in fm])
+               for c in range(0, CONFIG5_CHANNELS, step)]
+    pipe.run_microbatches(batches[:2])  # warm-up
+    walls, outs = {}, {}
+    for mode in ("pipelined", "sequential", "sequential", "pipelined"):
+        run = f"parallel_pipeline_{mode}"
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        reset_launch_counts()
+        outs[mode] = pipe.run_microbatches(
+            batches, force_sequential=mode == "sequential")
+        torch.cuda.synchronize()
+        walls.setdefault(mode, []).append(time.perf_counter() - start)
+        p.counts[run] = launch_counts()
+        if p.counts[run]["resample"] < len(batches) or p.counts[run][
+                "fir_float"] < len(batches) or any(
+                p.counts[run][k] for k in KERNELS
+                if k not in ("resample", "fir_float")):
+            raise AssertionError(f"{run} launches {p.counts[run]}: expected "
+                                 "kernels I and H only")
+    for m, (a, b) in enumerate(zip(outs["pipelined"], outs["sequential"])):
+        p.equal(f"parallel_pipeline_microbatch_{m}", a, b)
+    staged = chain_forward(*fm, dataclasses.replace(
+        cfg, channelizer_backend="mxu")).cpu()
+    wall = {mode: min(ts) for mode, ts in walls.items()}
+    result = {"pipeline_wall_s": wall,
+              "pipeline_sequential_over_pipelined": wall["sequential"]
+              / wall["pipelined"],
+              "pipeline_equals_staged_chain": bool(torch.equal(
+                  torch.cat(outs["pipelined"]), staged))}
+    print(f"[chip_smoke] PipelinedChain config 5 in {len(batches)} "
+          f"microbatches of {step} channels: pipelined "
+          f"{wall['pipelined']:.4f} s, force_sequential "
+          f"{wall['sequential']:.4f} s (best of 2, host clock, ratio "
+          f"{result['pipeline_sequential_over_pipelined']:.3f}) [{card}]",
+          flush=True)
+    return result
+
+
+def time_parallel(card: str, pairs: dict) -> dict:
+    """CUDA-event medians of each sharded call (a world of 1) beside the
+    unsharded call that computes the same outputs: ``pairs`` maps a name
+    to the two calls."""
+    med = median_ms({f"{name}_{side}": fn
+                     for name, fns in pairs.items()
+                     for side, fn in zip(("sharded", "unsharded"), fns)},
+                    PARALLEL_TIMING_REPS, PARALLEL_TIMING_CALLS)
+    times = {}
+    for name in pairs:
+        (ms, lo, hi), (un, un_lo, un_hi) = (med[f"{name}_sharded"],
+                                            med[f"{name}_unsharded"])
+        times[name] = {"sharded_ms": ms, "unsharded_ms": un}
+        print(f"[chip_smoke] time parallel {name}: sharded (world 1) median "
+              f"{ms:.4f} ms (min {lo:.4f}, max {hi:.4f}), unsharded "
+              f"{un:.4f} ms (min {un_lo:.4f}, max {un_hi:.4f}), ratio "
+              f"{ms / un:.3f} [{card}]", flush=True)
+    return times
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -2159,9 +2554,13 @@ def main() -> int:
     launches.update(counts4)
     counts_chain, chain_fft = run_chain_fft(fft_agree, fm, card)
     launches.update(counts_chain)
-    del fm
     times_fft = time_fft(card, fft_agree, x4_u8, x4, h4)
-    del x4_u8, x4
+    del x4_u8
+
+    phase("14 parallel")
+    counts14, parallel, times14 = run_parallel(card, x4, h4, fm)
+    launches.update(counts14)
+    del x4, fm
 
     def counted(name: str) -> dict:
         runs = {f"launches_{run}": run_counts[name]
@@ -2377,6 +2776,23 @@ def main() -> int:
                    ms_chain_shape=chain_fft["osfilt_stream_chain_ms"],
                    ms_chain_pallas=chain_fft["chain_pallas_ms"]),
     ]
+    # Phase 14's sharded paths: each run's launches of the kernel, and the
+    # sharded (world 1) and unsharded medians where the run was timed.
+    by_name = {kernel["name"]: kernel for kernel in kernels}
+    for name, runs in (
+            ("fir_band", ("fir1d", "bank", "spmd", "fir1d_shards")),
+            ("fir2d_oframe", ("fir2d", "fir2d_shards")),
+            ("fir2d_frame", ("fir2d_e",)),
+            ("chain_fused", ("chain", "chain_time", "chain_time_shards")),
+            ("osfilt_stream", ("config4", "config4_shards")),
+            ("osfilt", ("config4_259tap",)),
+            ("resample", ("pipeline_pipelined", "pipeline_sequential")),
+            ("fir_float", ("pipeline_pipelined", "pipeline_sequential"))):
+        by_name[name]["sharded_path"] = {
+            run: {"launches": counts14[f"parallel_{run}"][name],
+                  **times14.get(run, {})} for run in runs}
+    by_name["resample"]["sharded_path"]["pipeline_wall_s"] = parallel[
+        "pipeline_wall_s"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

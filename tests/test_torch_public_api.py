@@ -31,7 +31,7 @@ from warmup_fir_filter_tpu_torch.kernels.window_copy import window_rows_pallas
 from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 from warmup_fir_filter_tpu_torch.ops.resample import design_lowpass
 
-PACKAGES = ("", ".kernels", ".ops", ".models", ".pipeline")
+PACKAGES = ("", ".kernels", ".ops", ".models", ".pipeline", ".parallel")
 #: (coeff_bits, frac_bits, acc_bits): the default, a wrap-needing
 #: accumulator and a multi-digit format.
 FORMATS = ((16, 12, 32), (16, 12, 20), (32, 24, 32))

@@ -31,16 +31,26 @@ an (Lr, Lc) filter with Lc ≤ 257 goes to ``fir2d_fixed_mxu``, whose
 ``"auto"`` layout takes the overlapped frame (kernel F, K7) for
 ``0 < Lc - 1 ≤ 96`` and the plain frame (kernel E, K6) otherwise; any other
 filter goes to ``fir2d_fixed_torch``, the int32 path.
+:func:`prepare_fixed_fir2d` makes that choice once and prepares the filter
+for it, for callers that filter many pieces of an image
+(``parallel/halo.py``).
 """
 
 from __future__ import annotations
+
+from collections.abc import Callable
+from functools import partial
 
 import numpy as np
 import torch
 from torch import nn
 
 from warmup_fir_filter_tpu_torch import _build
-from warmup_fir_filter_tpu_torch.kernels.fir2d import as_image, fir2d_fixed_mxu
+from warmup_fir_filter_tpu_torch.kernels.fir2d import (
+    FixedFir2d,
+    as_image,
+    fir2d_fixed_image,
+)
 from warmup_fir_filter_tpu_torch.kernels.fir_band import MAX_TAPS, FixedFir1d
 from warmup_fir_filter_tpu_torch.kernels.fir_direct import FixedFirDirect
 from warmup_fir_filter_tpu_torch.kernels.fir_window import (
@@ -91,7 +101,18 @@ def fir2d_fixed_auto(x_u8: torch.Tensor, h,
     frame kernels when the column taps fit a band (Lc ≤ 257), else the
     int32 path.  Raises for ``acc_bits > 32``."""
     x_u8 = as_image(x_u8)
+    return prepare_fixed_fir2d(h, qformat, x_u8.device)(x_u8)
+
+
+def prepare_fixed_fir2d(
+    h, qformat: QFormat = QFormat(), device: torch.device | str = "cpu",
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """:func:`fir2d_fixed_auto`'s route for ``h``, with the filter prepared
+    once on ``device``: a function of an (H, W) uint8 image there.  The
+    frame kernels over one :class:`FixedFir2d` when the column taps fit a
+    band (Lc ≤ 257), else the int32 path."""
     h = np.asarray(h)
     if h.ndim == 2 and h.shape[1] <= MAX_TAPS:
-        return fir2d_fixed_mxu(x_u8, h, qformat)
-    return fir2d_fixed_torch(x_u8, h, qformat)
+        return partial(fir2d_fixed_image,
+                       fir=FixedFir2d.from_numpy(h, qformat, device))
+    return lambda x_u8: fir2d_fixed_torch(x_u8, h, qformat)

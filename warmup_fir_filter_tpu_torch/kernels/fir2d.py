@@ -833,18 +833,34 @@ def fir2d_fixed_mxu(
     a frame, filter, crop, on the image's device (a host array goes to the
     card, :func:`as_image`).  ``layout`` is ``"overlap"`` (``Lc <= 97``),
     ``"plain"`` (``Lc <= 257``) or ``"auto"`` (overlap where it fits)."""
-    taps_r, taps_c = (int(d) for d in np.asarray(h).shape)
+    x_u8 = as_image(x_u8)
+    return fir2d_fixed_image(x_u8, FixedFir2d.from_numpy(h, qformat,
+                                                         x_u8.device),
+                             block_rows=block_rows, layout=layout)
+
+
+def fir2d_fixed_image(
+    x_u8: torch.Tensor,
+    fir: FixedFir2d,
+    *,
+    block_rows: int | None = None,
+    layout: str = "auto",
+) -> torch.Tensor:
+    """:func:`fir2d_fixed_mxu` with the filter prepared once: a caller that
+    filters many images (or pieces of one) builds its :class:`FixedFir2d`
+    a single time.  The frames come from :func:`pad_frame` and
+    :func:`pad_frame_overlap`, so the row-block checks hold by
+    construction."""
+    taps_r, taps_c = fir.taps
     if layout == "auto":
         layout = ("overlap" if 0 < taps_c - 1 <= OFRAME_MAX_OVERLAP
                   else "plain")
     if layout == "overlap":
-        x_ext, (t0, h_img, w_img, block_rows) = pad_frame_overlap(
+        x_ext, (t0, h_img, w_img, _) = pad_frame_overlap(
             x_u8, taps_r, taps_c, block_rows=block_rows)
-        out = fir2d_fixed_frame_overlap(
-            x_ext, h, qformat, core=(t0, h_img, w_img), block_rows=block_rows)
+        out = fir2d_oframe(x_ext, fir, (t0, h_img, w_img))
         return crop_frame_overlap(out, taps_c, (t0, h_img, w_img))
-    x_ext, (t0, h_img, w_img, block_rows) = pad_frame(
-        x_u8, taps_r, block_rows=block_rows)
-    out = fir2d_fixed_frame(x_ext, h, qformat, core=(t0, h_img, w_img),
-                            block_rows=block_rows)
+    x_ext, (t0, h_img, w_img, _) = pad_frame(x_u8, taps_r,
+                                             block_rows=block_rows)
+    out = fir2d_frame(x_ext, fir, (t0, h_img, w_img))
     return out[t0 : t0 + h_img, LANE : LANE + w_img]
