@@ -11,7 +11,9 @@ of them pass:
 1. device   CUDA is present; print the card's name and power limit
             (``nvidia-smi``); note whether Pillow is installed.
 2. build    compile ``warmup_fir_filter_tpu_torch/csrc/*.cu`` with nvcc
-            from a clean build directory; print the seconds.
+            from a clean build directory, then the host C++ tools of
+            ``tools/src`` (``native.py``) with the host compiler; print
+            the seconds.
 3. kernels  each kernel against its plain PyTorch version (``torch.equal``,
             tolerance 0) over taps × widths × Q-formats and geometries, at
             the main paths' shapes, and against the host golden on the
@@ -139,9 +141,26 @@ of them pass:
             unsharded one.  Multi-rank exchange over NCCL needs a card a
             rank: ``tests/test_torch_parallel_worker.py worlds cuda``
             runs it on four.
+15. tools   the ported host tools and checks: kernel A at 19,456 × 8,192
+            (5-tap sharpen, Q4.12) bit for bit against the C++ oracle
+            (``fir1d_fixed_rows_native``, ``bit_compare_u8``; its host
+            time printed); kernel K against ``fft_radix2_native`` on one
+            16,384-point complex row (>= 120 dB); each of the thirteen
+            kernels byte-identical over two runs of its entry
+            (``assert_deterministic``); under ``nan_guard`` config 5 cut
+            to 16 × 200,000 through ``chain_forward`` "auto" (J) and
+            staged (I, H), config 4's entry (M) and ``fft_rows_pallas``
+            (K) run clean, while a CUDA ``0/0`` and kernels H and K over
+            a row holding one NaN raise ``FloatingPointError``; phase 4's
+            fixed stage again with ``--backend auto --profile``: the same
+            bytes, at least one kernel-A event a fixed output in the
+            trace, whose device busy share (the union of kernel and
+            memcpy intervals over the traced window) is printed; and
+            ``chained_throughput`` on kernel A's headline step, within 2×
+            of phase 9's median.
 
-Launch counts are zeroed just before each main path (phases 4-8, 11, 13
-and 14) and read just after it.  Then one JSON line for the kernels (each with its
+Launch counts are zeroed just before each main path (phases 4-8, 11, 13,
+14 and 15's traced fixed stage) and read just after it.  Then one JSON line for the kernels (each with its
 time, its plain version's, its bound at the card's published peaks and,
 where one PyTorch call computes the same function, that call's time), the
 card line, and as the last line ``{"ok": true, "device": {...}}``.  Inputs
@@ -151,6 +170,7 @@ come from numpy/torch generators seeded with ``SEED``.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import shutil
 import socket
@@ -165,7 +185,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from warmup_fir_filter_tpu_torch import _build
+from warmup_fir_filter_tpu_torch import _build, native
 from warmup_fir_filter_tpu_torch.cli import main as cli_main
 from warmup_fir_filter_tpu_torch.kernels.chain_fused import (
     FusedChain,
@@ -220,16 +240,19 @@ from warmup_fir_filter_tpu_torch.kernels.fir_band import (
 )
 from warmup_fir_filter_tpu_torch.kernels.fir_direct import (
     FixedFirDirect,
+    fir1d_fixed_rows_pallas,
     fir_direct,
     fir_direct_plain,
 )
 from warmup_fir_filter_tpu_torch.kernels.fir_float import (
     FloatFir1d,
+    fir1d_ideal_rows_band,
     fir_float,
     fir_float_plain,
 )
 from warmup_fir_filter_tpu_torch.kernels.fir_window import (
     FixedFirWindow,
+    fir1d_fixed_rows_mxu_window,
     fir_window,
     fir_window_plain,
 )
@@ -237,9 +260,11 @@ from warmup_fir_filter_tpu_torch.kernels.resample import (
     PolyphaseResampler,
     resample,
     resample_plain,
+    resample_poly_band,
 )
 from warmup_fir_filter_tpu_torch.kernels.window_copy import (
     window_rows,
+    window_rows_pallas,
     window_rows_plain,
 )
 from warmup_fir_filter_tpu_torch.models.chain import (
@@ -305,6 +330,11 @@ from warmup_fir_filter_tpu_torch.pipeline.artifacts import (
 )
 from warmup_fir_filter_tpu_torch.pipeline.synthetic import (
     _render as render_image,
+)
+from warmup_fir_filter_tpu_torch.utils.benchmarking import chained_throughput
+from warmup_fir_filter_tpu_torch.utils.debugging import (
+    assert_deterministic,
+    nan_guard,
 )
 from warmup_fir_filter_tpu_torch.utils.imageio import save_gray_png
 from yardsticks import conv1d_resample, conv1d_resampler
@@ -506,6 +536,18 @@ PARALLEL_MICROBATCHES = 8
 PARALLEL_SPMD_MICROBATCHES = 8
 PARALLEL_TIMING_REPS = 5
 PARALLEL_TIMING_CALLS = 3
+#: Phase 15: the native FFT's row against kernel K, the determinism
+#: shapes' long filters, the guarded runs' cuts of configs 5 and 4, and
+#: ``chained_throughput``'s sweeps.
+NATIVE_FFT_POINTS = 16384
+DIRECT_DETERMINISM_TAPS = 4097
+OSFILT_DETERMINISM_TAPS = 259
+GUARD_CHAIN_TIME = 200_000
+GUARD_CONFIG4_TIME = 1_000_000
+CHAINED_BEST_OF = 3
+#: Kernel A's ``__global__`` names (``csrc/fir_band.cu:46``, ``:62``) as
+#: they appear in a trace's kernel events.
+KERNEL_A_NAMES = ("fir_band_kernel", "fir_band_short_kernel")
 
 
 def phase(name: str) -> None:
@@ -1083,7 +1125,7 @@ def run_main_path(have_pil: bool) -> dict:
     check_fixed_outputs(store, goldens)
     print(f"[chip_smoke] {FIXED_OUTPUTS} fixed outputs == host golden "
           "(direct kernel)", flush=True)
-    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    # The corpus and its outputs stay for phase 15's traced fixed stage.
     return {"auto": auto, "backend_direct": direct}
 
 
@@ -2457,6 +2499,296 @@ def time_parallel(card: str, pairs: dict) -> dict:
     return times
 
 
+
+def determinism_entries(x: torch.Tensor, gen: torch.Generator) -> dict:
+    """Each kernel's entry as a caller reaches it, at the main paths'
+    shapes: A at 19,456 × 8,192 (``x``), B at 5 and 4,097 taps, C at
+    1,001, D at the 5-tap stream's block, E, F and G on 8192² sharpen5
+    frames, H on 32 × 1,333,334 f32, I and J on config 5's planes, K at
+    8,192 × 2,048, L at 259 taps and M at config 4's shape."""
+    qf = QFormat()
+    h5 = np.asarray(FILTER_BANKS[5]["sharpen"])
+    sub, g = pick_window_split(STREAM_CHANNELS, STREAM_BLOCK, 5)
+    block = torch.randint(0, 256, (STREAM_CHANNELS, STREAM_BLOCK),
+                          dtype=torch.uint8, device="cuda", generator=gen)
+    carry = torch.randint(0, 256, (STREAM_CHANNELS, 128), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+    image = torch.randint(0, 256, (FRAME_SIZE, FRAME_SIZE), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+    h2d = np.asarray(FILTER_BANK_2D["sharpen5"])
+    frame, (t0, h_img, w_img, rows) = pad_frame(image, h2d.shape[0])
+    oframe, (o_t0, o_h, o_w, o_rows) = pad_frame_overlap(image, *h2d.shape)
+    rows_f32 = torch.randn((2 * CONFIG5_CHANNELS, 1_333_334), device="cuda",
+                           generator=gen)
+    re, im = (torch.randn((CONFIG5_CHANNELS, CONFIG5_TIME), device="cuda",
+                          generator=gen) for _ in range(2))
+    fft_re, fft_im = (torch.randn(FFT_TIMING_SHAPES[0], device="cuda",
+                                  generator=gen) for _ in range(2))
+    x4 = torch.randint(0, 256, (CONFIG4_CHANNELS, CONFIG4_TIME),
+                       dtype=torch.uint8, device="cuda",
+                       generator=gen).to(torch.float32)
+    cfg = ChainConfig()
+    return {
+        "fir_band": lambda: fir1d_fixed_rows_auto(x, h5, qf),
+        "fir_direct": lambda: (
+            fir1d_fixed_rows_pallas(x, h5, qf),
+            fir1d_fixed_rows_pallas(x, design_lowpass(
+                DIRECT_DETERMINISM_TAPS, 0.25), qf)),
+        "fir_window": lambda: fir1d_fixed_rows_mxu_window(
+            x, design_lowpass(LONG_TAPS, 0.2), qf),
+        "window_rows": lambda: window_rows_pallas(block, carry, sub, g),
+        "fir2d_frame": lambda: fir2d_fixed_frame(
+            frame, h2d, core=(t0, h_img, w_img), block_rows=rows),
+        "fir2d_oframe": lambda: fir2d_fixed_frame_overlap(
+            oframe, h2d, core=(o_t0, o_h, o_w), block_rows=o_rows),
+        "fir2d_bf16": lambda: fir2d_frame_overlap_bf16(
+            oframe, h2d, core=(o_t0, o_h, o_w), block_rows=o_rows),
+        "fir_float": lambda: fir1d_ideal_rows_band(rows_f32,
+                                                   design_lowpass(63, 0.2)),
+        "resample": lambda: resample_poly_band(
+            re, cfg.resample_filter(), cfg.resample_up, cfg.resample_down),
+        "chain_fused": lambda: chain_forward(re, im, cfg),
+        "fft_rows": lambda: fft_rows_pallas(fft_re, fft_im),
+        "osfilt": lambda: fir_overlap_save_pallas(
+            x4[:, :PARALLEL_LONG_TIME],
+            design_lowpass(OSFILT_DETERMINISM_TAPS, 0.25)),
+        "osfilt_stream": lambda: fir_overlap_save_pallas(
+            x4, design_lowpass(CONFIG4_TAPS, 0.25)),
+    }
+
+
+def fixed_digests(store: ArtifactStore) -> dict:
+    return {f"{tap}/{path.name}": hashlib.sha256(path.read_bytes()).hexdigest()
+            for tap in (3, 5)
+            for path in sorted(store.vector_dir("fixed", tap).glob("*.npy"))}
+
+
+def interval_union(spans: list) -> float:
+    """Length of the union of ``(start, end)`` spans."""
+    total, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total
+
+
+def read_trace(trace_dir: Path) -> dict:
+    """Kernel A's launches, the device's kernel and copy time, and the
+    device busy share from the ``torch.profiler`` trace in ``trace_dir``:
+    the union of the GPU kernel and memcpy intervals over the span from
+    the first to the last event of the profiled region."""
+    files = sorted(trace_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"expected one trace in {trace_dir}, found "
+                             f"{[f.name for f in files]}")
+    events = [e for e in json.loads(files[0].read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    a_events = [e for e in kernels
+                if any(name in e["name"] for name in KERNEL_A_NAMES)]
+    # The host-side call (runtime or driver API) each launch correlates to.
+    host_calls = {e["args"]["correlation"]: f"{e['cat']}:{e['name']}"
+                  for e in events
+                  if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                  and "correlation" in e.get("args", {})}
+    a_calls = [host_calls.get(e.get("args", {}).get("correlation"))
+               for e in a_events]
+    by_copy: dict = {}
+    for e in copies:
+        entry = by_copy.setdefault(e["name"], {"events": 0, "ms": 0.0,
+                                               "bytes": 0})
+        entry["events"] += 1
+        entry["ms"] += e["dur"] / 1e3
+        entry["bytes"] += e.get("args", {}).get("bytes", 0)
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+    busy_us = interval_union([(e["ts"], e["ts"] + e["dur"])
+                              for e in kernels + copies])
+    return {
+        "file_bytes": files[0].stat().st_size,
+        "events": len(events),
+        "kernel_a_events": len(a_events),
+        "kernel_a_names": sorted({e["name"] for e in a_events}),
+        "kernel_a_with_host_launch": sum(call is not None for call in a_calls),
+        "kernel_a_launch_calls": sorted({c for c in a_calls if c}),
+        "kernel_a_device_ms": sum(e["dur"] for e in a_events) / 1e3,
+        "kernel_events": len(kernels),
+        "kernel_device_ms": sum(e["dur"] for e in kernels) / 1e3,
+        "memcpy_events": len(copies),
+        "memcpy_device_ms": sum(e["dur"] for e in copies) / 1e3,
+        "memcpy_by_kind": by_copy,
+        "window_ms": (hi - lo) / 1e3,
+        "busy_ms": busy_us / 1e3,
+        "busy_share": busy_us / (hi - lo),
+    }
+
+
+def run_traced_fixed_stage(card: str) -> tuple[dict, dict]:
+    """The CLI's fixed stage alone over phase 4's corpus with ``--backend
+    auto --profile``: kernel A alone, the fixed outputs' bytes unchanged,
+    and at least FIXED_OUTPUTS of A's kernels in the trace."""
+    root = WORK_DIR / "artifacts"
+    store = ArtifactStore(root)
+    trace_dir = WORK_DIR / "trace"
+    before = fixed_digests(store)
+    if len(before) != FIXED_OUTPUTS:
+        raise AssertionError(f"{len(before)} fixed outputs before the traced "
+                             f"run, expected {FIXED_OUTPUTS}")
+    reset_launch_counts()
+    start = time.perf_counter()
+    cli_main(["--artifact-root", str(root), "--device", "cuda", "--backend",
+              "auto", "--skip-input", "--skip-ideal", "--skip-report",
+              "--skip-restore", "--overwrite-vectors", "--profile",
+              str(trace_dir)])
+    traced_s = time.perf_counter() - start
+    counts = launch_counts()
+    only(counts, "fir_band", FIXED_OUTPUTS, "traced fixed stage")
+    if fixed_digests(store) != before:
+        raise AssertionError("the traced fixed stage wrote other bytes")
+    summary = {"host_s": traced_s, **read_trace(trace_dir)}
+    print(f"[chip_smoke] traced fixed stage (--backend auto --profile): "
+          f"{json.dumps(summary)} [{card}]", flush=True)
+    if summary["kernel_a_events"] < FIXED_OUTPUTS:
+        raise AssertionError(f"{summary['kernel_a_events']} kernel-A events "
+                             f"in the trace, expected >= {FIXED_OUTPUTS}")
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    return counts, summary
+
+
+def run_tools(card: str, band_ms: float) -> tuple[dict, dict]:
+    """Phase 15: the ported host tools, ``nan_guard``,
+    ``assert_deterministic``, ``trace`` and ``chained_throughput`` on the
+    card.  Returns the traced run's launch counts and the phase's
+    results."""
+    qf = QFormat()
+    h5 = np.asarray(FILTER_BANKS[5]["sharpen"])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    x = torch.randint(0, 256, BENCH_SHAPE, dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    result: dict = {}
+
+    # 1. The C++ fixed-point oracle against kernel A, bit for bit.
+    y = fir1d_fixed_rows_auto(x, h5, qf)
+    x_host = x.cpu().numpy()
+    start = time.perf_counter()
+    oracle = native.fir1d_fixed_rows_native(x_host, h5, qf)
+    result["oracle_host_s"] = time.perf_counter() - start
+    compare = native.bit_compare_u8(y, oracle)
+    print(f"[chip_smoke] C++ oracle vs kernel A at {BENCH_SHAPE[0]}x"
+          f"{BENCH_SHAPE[1]} u8, 5-tap sharpen, Q4.12: {json.dumps(compare)}; "
+          f"oracle {result['oracle_host_s']:.3f} s host clock "
+          f"({x.numel() / result['oracle_host_s'] / 1e6:.1f} Msamples/s) "
+          f"[{card}]", flush=True)
+    if not compare["bit_exact"]:
+        raise AssertionError(f"kernel A != the C++ oracle: {compare}")
+    result["oracle_compare"] = compare
+    del y, x_host, oracle
+
+    # 2. The native radix-2 FFT against kernel K on one row.
+    xr, xi = (torch.randn((1, NATIVE_FFT_POINTS), device="cuda",
+                          generator=gen) for _ in range(2))
+    yr, yi = fft_rows_pallas(xr, xi)
+    nr, ni = native.fft_radix2_native(xr[0], xi[0])
+    want = nr + 1j * ni
+    got = yr[0].cpu().double().numpy() + 1j * yi[0].cpu().double().numpy()
+    result["native_fft_snr_db"] = float(10 * np.log10(
+        np.sum(np.abs(want) ** 2) / np.sum(np.abs(got - want) ** 2)))
+    print(f"[chip_smoke] native FFT vs kernel K, one {NATIVE_FFT_POINTS}-point "
+          f"complex row: {result['native_fft_snr_db']:.2f} dB", flush=True)
+    if not result["native_fft_snr_db"] >= 120.0:
+        raise AssertionError(f"kernel K vs the native FFT: "
+                             f"{result['native_fft_snr_db']:.2f} dB < 120")
+
+    # 3. Every kernel, through its entry, byte for byte over two runs.
+    start = time.perf_counter()
+    result["deterministic"] = {}
+    for name, entry in determinism_entries(x, gen).items():
+        reset_launch_counts()
+        assert_deterministic(entry)
+        torch.cuda.synchronize()
+        only(launch_counts(), name, 2, f"determinism of {name}")
+        result["deterministic"][name] = True
+    print(f"[chip_smoke] deterministic over two runs: "
+          f"{sorted(result['deterministic'])} "
+          f"({time.perf_counter() - start:.1f} s)", flush=True)
+
+    # 4. nan_guard: the float paths run clean under it; a NaN raises, from
+    # an aten op and from the kernels' wrappers.
+    cfg = ChainConfig()
+    staged_cfg = dataclasses.replace(cfg, channelizer_backend="mxu")
+    re, im = fm_planes(np.random.default_rng(CONFIG5_SEED + 15),
+                       CONFIG5_CHANNELS, GUARD_CHAIN_TIME, cfg.demod_k_f)
+    x4 = torch.randint(0, 256, (CONFIG4_CHANNELS, GUARD_CONFIG4_TIME),
+                       dtype=torch.uint8, device="cuda",
+                       generator=gen).to(torch.float32)
+    guarded = {}
+    with nan_guard():
+        for run, fn in (
+                ("chain_auto", lambda: chain_forward(re, im, cfg)),
+                ("chain_staged", lambda: chain_forward(re, im, staged_cfg)),
+                ("config4", lambda: fir_overlap_save_pallas(
+                    x4, design_lowpass(CONFIG4_TAPS, 0.25))),
+                ("fft_rows", lambda: fft_rows_pallas(xr, xi))):
+            reset_launch_counts()
+            fn()
+            torch.cuda.synchronize()
+            guarded[run] = {k: v for k, v in launch_counts().items() if v}
+    expected = {"chain_auto": {"chain_fused"},
+                "chain_staged": {"resample", "fir_float"},
+                "config4": {"osfilt_stream"}, "fft_rows": {"fft_rows"}}
+    if {run: set(counts) for run, counts in guarded.items()} != expected:
+        raise AssertionError(f"guarded runs launched {guarded}, expected "
+                             f"{expected}")
+    fir = FloatFir1d(design_lowpass(63, 0.2), "cuda")
+    row = torch.ones((1, 4096), device="cuda")
+    row[0, 1234] = float("nan")
+    raised = {}
+    for run, fn in (("aten 0/0", lambda: torch.zeros((), device="cuda") / 0.0),
+                    ("kernel fir_float", lambda: fir_float(row, fir)),
+                    ("kernel fft_rows", lambda: fft_rows(row, None,
+                                                         inverse=False))):
+        reset_launch_counts()
+        try:
+            with nan_guard():
+                fn()
+        except FloatingPointError as exc:
+            raised[run] = str(exc)
+        else:
+            raise AssertionError(f"nan_guard let a NaN through: {run}")
+        kernel = run.split()[-1]
+        if run.startswith("kernel") and (kernel not in raised[run]
+                                         or launch_counts()[kernel] != 1):
+            raise AssertionError(f"{run}: raised {raised[run]!r} with "
+                                 f"launches {launch_counts()}")
+    result["nan_guard"] = {"clean": guarded, "raised": raised}
+    print(f"[chip_smoke] nan_guard: {json.dumps(result['nan_guard'])}",
+          flush=True)
+    del re, im, x4
+
+    # 5. The traced main path.
+    counts, result["trace"] = run_traced_fixed_stage(card)
+
+    # 6. chained_throughput on kernel A's headline step.
+    band = FixedFir1d.from_numpy(h5, qf, "cuda")
+    chained = chained_throughput(band, x, best_of=CHAINED_BEST_OF)
+    ratio = chained["seconds_per_apply"] * 1e3 / band_ms
+    result["chained"] = {**chained, "ratio_to_phase9_median": ratio,
+                         "times": {str(k): v
+                                   for k, v in chained["times"].items()}}
+    print(f"[chip_smoke] chained_throughput kernel A {BENCH_SHAPE[0]}x"
+          f"{BENCH_SHAPE[1]} u8, 5 taps: "
+          f"{chained['samples_per_second']:.6g} samples/s, "
+          f"{chained['seconds_per_apply'] * 1e3:.4f} ms an apply (phase 9 "
+          f"median {band_ms:.4f} ms, ratio {ratio:.3f}), slopes "
+          f"{[s * 1e3 for s in chained['slopes']]} ms [{card}]", flush=True)
+    if not 0.5 <= ratio <= 2.0:
+        raise AssertionError(f"chained_throughput {ratio:.3f}x phase 9's "
+                             "median, outside 2x")
+    return counts, result
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -2487,6 +2819,11 @@ def main() -> int:
     build_s = time.perf_counter() - start
     print(f"[chip_smoke] build: {build_s:.2f} s (nvcc {_build.find_nvcc()}, "
           f"{len(_build.kernel_sources())} sources)", flush=True)
+    start = time.perf_counter()
+    native.load_native()
+    print(f"[chip_smoke] native tools build: {time.perf_counter() - start:.2f}"
+          f" s ({_build.find_cxx()}, {len(_build.TOOLS_SOURCES)} sources)",
+          flush=True)
 
     phase("3 kernels vs plain")
     agree = {name: Agreement() for name in KERNELS}
@@ -2561,6 +2898,11 @@ def main() -> int:
     counts14, parallel, times14 = run_parallel(card, x4, h4, fm)
     launches.update(counts14)
     del x4, fm
+
+    phase("15 tools")
+    launches["traced_fixed_stage"], tools = run_tools(card, band_times[5])
+    print(f"[chip_smoke] phases done at {time.perf_counter() - START:.1f} s",
+          flush=True)
 
     def counted(name: str) -> dict:
         runs = {f"launches_{run}": run_counts[name]
@@ -2793,6 +3135,20 @@ def main() -> int:
                   **times14.get(run, {})} for run in runs}
     by_name["resample"]["sharded_path"]["pipeline_wall_s"] = parallel[
         "pipeline_wall_s"]
+    # Phase 15: every kernel byte-identical over two runs of its entry; A
+    # against the C++ oracle, traced and timed by chained_throughput; K
+    # against the native FFT.
+    for kernel in kernels:
+        kernel["deterministic"] = tools["deterministic"][kernel["name"]]
+    trace = tools["trace"]
+    by_name["fir_band"].update({
+        "oracle_bit_exact": tools["oracle_compare"]["bit_exact"],
+        "oracle_host_s": tools["oracle_host_s"],
+        "ms_chained_throughput": tools["chained"]["seconds_per_apply"] * 1e3,
+        "trace_events": trace["kernel_a_events"],
+        "trace_device_ms": trace["kernel_a_device_ms"],
+        "traced_fixed_stage_busy_share": trace["busy_share"]})
+    by_name["fft_rows"]["native_fft_snr_db"] = tools["native_fft_snr_db"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -103,6 +103,25 @@ def test_port_main_resume_regenerates_nothing(runs, capsys):
     assert {p.name: p.stat().st_mtime_ns for p in fixed.glob("*.npy")} == stamps
 
 
+def test_port_main_profile_writes_the_same_bytes_and_a_trace(runs, tmp_path):
+    """``--profile DIR`` wraps the pipeline in ``trace``: the same fixed
+    bytes as the untraced run, and a TensorBoard trace in DIR."""
+    image_dir, _, port_root, _, _ = runs
+    rc = port_main(["--image-dir", str(image_dir), "--artifact-root",
+                    str(tmp_path / "out"), "--device", "cpu", "--skip-ideal",
+                    "--skip-report", "--skip-restore", "--profile",
+                    str(tmp_path / "prof")])
+    assert rc == 0
+    traced = _npy_files(tmp_path / "out", "fixed")
+    assert len(traced) == len(SPECS) * 4 * 2
+    assert traced == _npy_files(port_root, "fixed")
+    files = list((tmp_path / "prof").glob("*.pt.trace.json"))
+    assert len(files) == 1
+    names = {e.get("name") for e in json.loads(files[0].read_text())[
+        "traceEvents"] if e.get("ph") == "X"}
+    assert any(name.startswith("aten::") for name in names)
+
+
 def test_port_main_needs_image_dir(tmp_path):
     with pytest.raises(ValueError, match="image directory"):
         port_main(["--artifact-root", str(tmp_path), "--device", "cpu"])

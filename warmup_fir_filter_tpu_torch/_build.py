@@ -10,6 +10,11 @@ the library holds the SHA-256 of the sources and flags; a changed source
 rebuilds.  A missing ``nvcc`` or a failed build raises :class:`BuildError`:
 nothing falls back to a plain version.
 
+The host C++ tools of ``tools/src`` (the fixed-point oracle, the streaming
+FIR, the radix-2 FFT and the bit-compare; bound by ``native.py``) are built
+the same way by :func:`build_tools`, with the host compiler, into
+``libwft_tools.so`` in the same directory under their own stamp.
+
 Calling convention of every C entry point: device pointers and the CUDA
 stream go in as ``ctypes.c_void_p`` (ctypes would cut a pointer passed
 as a plain int to 32 bits), and the function returns
@@ -41,6 +46,14 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+#: The host tools' sources, as ``tools/CMakeLists.txt`` declares them.
+TOOLS_SRC_DIR = PACKAGE_DIR.parent / "tools" / "src"
+TOOLS_SOURCES = ("wft_complex.cpp", "wft_fir.cpp", "wft_capi.cpp")
+TOOLS_LIBRARY_NAME = "libwft_tools.so"
+#: Flags of the one host-compiler call that builds the tools' library.
+CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
+#: Host compilers searched on PATH after ``$CXX``.
+CXX_NAMES = ("c++", "g++", "clang++")
 
 _VOIDP = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -138,7 +151,8 @@ _LOADED: dict[str, ctypes.CDLL] = {}
 
 
 class BuildError(RuntimeError):
-    """nvcc is missing or refused the sources."""
+    """A compiler (nvcc, or the host's for the tools) is missing or
+    refused the sources."""
 
 
 class LaunchError(RuntimeError):
@@ -175,14 +189,19 @@ def source_digest() -> str:
     return digest.hexdigest()
 
 
+def _up_to_date(library: Path, digest: str) -> bool:
+    stamp = library.with_name(f"{library.name}.sha256")
+    return (library.is_file() and stamp.is_file()
+            and stamp.read_text().strip() == digest)
+
+
 def build(build_dir: Path = DEFAULT_BUILD_DIR) -> Path:
     """Compile the kernels unless an up-to-date library exists; return it."""
     build_dir = Path(build_dir)
     library = build_dir / LIBRARY_NAME
     stamp = build_dir / f"{LIBRARY_NAME}.sha256"
     digest = source_digest()
-    if (library.is_file() and stamp.is_file()
-            and stamp.read_text().strip() == digest):
+    if _up_to_date(library, digest):
         return library
     nvcc = find_nvcc()
     build_dir.mkdir(parents=True, exist_ok=True)
@@ -204,6 +223,57 @@ def build(build_dir: Path = DEFAULT_BUILD_DIR) -> Path:
     return library
 
 
+def find_cxx() -> str:
+    """Path of the host C++ compiler: ``$CXX``, then ``c++``, ``g++`` and
+    ``clang++`` on PATH."""
+    for name in (os.environ.get("CXX"), *CXX_NAMES):
+        found = shutil.which(name) if name else None
+        if found:
+            return found
+    raise BuildError(
+        "no C++ compiler found (searched $CXX, then "
+        f"{', '.join(CXX_NAMES)} on PATH); the host tools of "
+        f"{TOOLS_SRC_DIR} cannot be built.")
+
+
+def tools_digest() -> str:
+    """SHA-256 over the flags and every source and header in ``tools/src``."""
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for path in sorted([*TOOLS_SRC_DIR.glob("*.cpp"),
+                        *TOOLS_SRC_DIR.glob("*.h")]):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return digest.hexdigest()
+
+
+def tools_built(build_dir: Path = DEFAULT_BUILD_DIR) -> bool:
+    """True when ``build_dir`` holds the tools' library stamped with the
+    current sources' digest."""
+    return _up_to_date(Path(build_dir) / TOOLS_LIBRARY_NAME, tools_digest())
+
+
+def build_tools(build_dir: Path = DEFAULT_BUILD_DIR) -> Path:
+    """Compile the host tools unless an up-to-date library exists; return
+    it.  One host-compiler call over ``TOOLS_SOURCES``."""
+    build_dir = Path(build_dir)
+    library = build_dir / TOOLS_LIBRARY_NAME
+    digest = tools_digest()
+    if _up_to_date(library, digest):
+        return library
+    cxx = find_cxx()
+    build_dir.mkdir(parents=True, exist_ok=True)
+    partial = build_dir / f"{TOOLS_LIBRARY_NAME}.{os.getpid()}.tmp"
+    try:
+        _run_all([[cxx, *CXX_FLAGS, "-I", str(TOOLS_SRC_DIR), "-o",
+                   str(partial),
+                   *(str(TOOLS_SRC_DIR / name) for name in TOOLS_SOURCES)]])
+        os.replace(partial, library)
+    finally:
+        partial.unlink(missing_ok=True)
+    library.with_name(f"{library.name}.sha256").write_text(digest + "\n")
+    return library
+
+
 def _run_all(commands: list[list[str]]) -> None:
     """Run the commands at once, wait for every one, raise on any failure."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -213,7 +283,8 @@ def _run_all(commands: list[list[str]]) -> None:
     for cmd, proc in procs:
         out, err = proc.communicate()
         if proc.returncode != 0:
-            failures.append(f"nvcc failed (rc={proc.returncode}): "
+            failures.append(f"{Path(cmd[0]).name} failed "
+                            f"(rc={proc.returncode}): "
                             f"{' '.join(cmd)}\n{out}\n{err}")
     if failures:
         raise BuildError("\n".join(failures))

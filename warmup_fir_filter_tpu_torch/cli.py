@@ -10,7 +10,11 @@ images, with the same flags, except that
 - ``--device {cuda,cpu}`` (default ``cuda``) says where the fixed stage
   runs; ``cuda`` without a CUDA device raises;
 - ``--image-dir`` has no default: it is needed unless ``--skip-input``;
-- there is no ``--profile`` yet.
+- ``--profile DIR`` traces the pipeline with ``torch.profiler``
+  (``utils/profiling.py::trace``) into DIR as a TensorBoard
+  ``*.pt.trace.json``: the host's torch ops and, with CUDA, the card's
+  kernels (kernel A's ``fir_band_*`` launches, one a fixed output) and
+  copies, the card synchronized before the trace ends.
 
 Only the fixed stage runs on the device; the other stages are the port's
 copies of the JAX package's numpy code.  Run as
@@ -20,6 +24,7 @@ copies of the JAX package's numpy code.  Run as
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from pathlib import Path
 
@@ -40,6 +45,7 @@ from warmup_fir_filter_tpu_torch.pipeline.stages import (
 )
 from warmup_fir_filter_tpu_torch.pipeline.synthetic import synthesize_corpus
 from warmup_fir_filter_tpu_torch.utils.logging import stage_line
+from warmup_fir_filter_tpu_torch.utils.profiling import trace
 
 
 def run_pipeline(
@@ -180,6 +186,9 @@ def build_argparser() -> argparse.ArgumentParser:
     parser.add_argument("--strict-restore", action="store_true")
     parser.add_argument("--top-k", type=int, default=5,
                         help="Top-k worst cases in compare reports.")
+    parser.add_argument("--profile", type=Path, default=None, metavar="DIR",
+                        help="Capture a torch.profiler trace of the whole "
+                             "pipeline into DIR (viewable in TensorBoard).")
     return parser
 
 
@@ -191,31 +200,34 @@ def main(argv=None) -> int:
         stage_line(f"synthesize corpus -> {args.image_dir}")
         synthesize_corpus(args.image_dir)
     start = time.perf_counter()
+    profile_cm = (trace(str(args.profile)) if args.profile is not None
+                  else contextlib.nullcontext())
     try:
-        result = run_pipeline(
-            image_dir=args.image_dir,
-            artifact_root=args.artifact_root,
-            tap=args.tap,
-            backend=args.backend,
-            device=args.device,
-            qformat=QFormat(
-                coeff_bits=args.coeff_bits,
-                frac_bits=args.frac_bits,
-                acc_bits=args.acc_bits,
-            ),
-            overwrite_vectors=args.overwrite_vectors,
-            overwrite_images=args.overwrite_images,
-            skip_input=args.skip_input,
-            skip_ideal=args.skip_ideal,
-            skip_fixed=args.skip_fixed,
-            skip_report=args.skip_report,
-            skip_restore=args.skip_restore,
-            restore_kind=args.restore_kind,
-            ideal_policy=args.ideal_policy,
-            strict_report=args.strict_report,
-            strict_restore=args.strict_restore,
-            top_k=args.top_k,
-        )
+        with profile_cm:
+            result = run_pipeline(
+                image_dir=args.image_dir,
+                artifact_root=args.artifact_root,
+                tap=args.tap,
+                backend=args.backend,
+                device=args.device,
+                qformat=QFormat(
+                    coeff_bits=args.coeff_bits,
+                    frac_bits=args.frac_bits,
+                    acc_bits=args.acc_bits,
+                ),
+                overwrite_vectors=args.overwrite_vectors,
+                overwrite_images=args.overwrite_images,
+                skip_input=args.skip_input,
+                skip_ideal=args.skip_ideal,
+                skip_fixed=args.skip_fixed,
+                skip_report=args.skip_report,
+                skip_restore=args.skip_restore,
+                restore_kind=args.restore_kind,
+                ideal_policy=args.ideal_policy,
+                strict_report=args.strict_report,
+                strict_restore=args.strict_restore,
+                top_k=args.top_k,
+            )
     except Exception as exc:
         elapsed = time.perf_counter() - start
         print(f'[FAIL] pipeline elapsed={elapsed:.3f}s error="{exc}"')

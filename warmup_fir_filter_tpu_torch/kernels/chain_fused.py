@@ -54,6 +54,7 @@ from warmup_fir_filter_tpu_torch.kernels.resample import (
     band_windows,
     build_resample_band,
 )
+from warmup_fir_filter_tpu_torch.utils.debugging import check_kernel_output
 
 PRECISIONS = ("bf16x3", "highest", "bf16")
 #: Output lane tiles of the TPU kernel's superblock; the gate below keeps
@@ -218,6 +219,7 @@ def chain_fused(re: torch.Tensor, im: torch.Tensor, chain: FusedChain,
         )
     _build.check_launch(lib, code, "chain_fused")
     chain_fused.launches += 1
+    check_kernel_output("chain_fused", y)
     return y
 
 

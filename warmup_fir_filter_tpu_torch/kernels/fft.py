@@ -58,6 +58,7 @@ from torch import nn
 from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.ops.fftfilt import frame_overlap, pick_nfft
 from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
+from warmup_fir_filter_tpu_torch.utils.debugging import check_kernel_output
 
 LANE = 128
 #: Largest FFT the 4-step N1×N2 split supports (N1, N2 ≤ lane width).
@@ -440,6 +441,7 @@ def fft_rows(xr: torch.Tensor, xi: torch.Tensor | None, *,
         )
     _build.check_launch(lib, code, "fft_rows")
     fft_rows.launches += 1
+    check_kernel_output("fft_rows", yr, yi)
     return yr, yi
 
 
@@ -480,6 +482,7 @@ def osfilt(segments: torch.Tensor, spectrum: FilterSpectrum, *,
         )
     _build.check_launch(lib, code, "osfilt")
     osfilt.launches += 1
+    check_kernel_output("osfilt", y)
     return y
 
 
@@ -530,6 +533,7 @@ def osfilt_stream(x: torch.Tensor, tables: FilterSpectrum, *, off: int,
         )
     _build.check_launch(lib, code, "osfilt_stream")
     osfilt_stream.launches += 1
+    check_kernel_output("osfilt_stream", y)
     return y
 
 

@@ -30,6 +30,7 @@ from torch import nn
 from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.kernels.fir_band import LANE, MAX_TAPS
 from warmup_fir_filter_tpu_torch.ops.fir1d import fir1d_ideal_rows_torch
+from warmup_fir_filter_tpu_torch.utils.debugging import check_kernel_output
 
 PRECISIONS = ("bf16x3", "highest")
 #: Sample types the kernel reads; others are converted to f32 first.
@@ -136,6 +137,7 @@ def fir_float(x: torch.Tensor, fir: FloatFir1d) -> torch.Tensor:
         )
     _build.check_launch(lib, code, "fir_float")
     fir_float.launches += 1
+    check_kernel_output("fir_float", y)
     return y
 
 

@@ -33,6 +33,7 @@ from torch import nn
 from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.kernels.fir_band import LANE
 from warmup_fir_filter_tpu_torch.ops.resample import _plan, _polyphase_taps
+from warmup_fir_filter_tpu_torch.utils.debugging import check_kernel_output
 
 PRECISIONS = ("bf16x3", "highest")
 
@@ -153,6 +154,7 @@ def resample(x: torch.Tensor, rs: PolyphaseResampler) -> torch.Tensor:
         )
     _build.check_launch(lib, code, "resample")
     resample.launches += 1
+    check_kernel_output("resample", y)
     return y
 
 

@@ -1,15 +1,66 @@
-"""Stage timing: the pipeline's ``[OK] ...`` status line with throughput.
+"""Tracing and stage timing: ``trace`` and the ``[OK] ...`` status line.
 
-:class:`StageTimer` is a copy of the JAX package's
-(``warmup_fir_filter_tpu/utils/profiling.py:47-107``), except that
-``sol_msps`` defaults to ``None``: the JAX package's default speed of light
-is a figure for its TPU, so the port reports no roofline fraction unless a
-caller passes one measured for its own card.
+- :func:`trace` — the counterpart of the JAX package's
+  (``warmup_fir_filter_tpu/utils/profiling.py:23-44``) on
+  ``torch.profiler``: host events, and the card's kernels and copies when
+  CUDA is present, written for TensorBoard as ``*.pt.trace.json`` (a
+  Chrome trace) into the directory; it never raises when the profiler
+  cannot start, and then prints one ``[WARN]`` line;
+- :class:`StageTimer` — a copy of the JAX package's
+  (``warmup_fir_filter_tpu/utils/profiling.py:47-107``), except that
+  ``sol_msps`` defaults to ``None``: the JAX package's default speed of
+  light is a figure for its TPU, so the port reports no roofline fraction
+  unless a caller passes one measured for its own card.
 """
 
 from __future__ import annotations
 
 import time
+from contextlib import contextmanager
+
+import torch
+
+
+@contextmanager
+def trace(log_dir: str, *, enabled: bool = True):
+    """Capture a ``torch.profiler`` trace of the enclosed region (best
+    effort): CPU activity, plus CUDA's when CUDA is available; the card is
+    synchronized before the profiler stops, so every launch of the region
+    is in the trace.  ``enabled=False`` never starts the profiler."""
+    if not enabled:
+        yield
+        return
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    profiler = None
+    try:
+        profiler = profile(activities=activities,
+                           on_trace_ready=tensorboard_trace_handler(
+                               str(log_dir)))
+        profiler.start()
+    except Exception as exc:  # profiling unavailable: run untraced
+        profiler = None
+        print(f"[WARN] trace not started in {log_dir}: {exc!r}")
+    try:
+        yield
+    finally:
+        if profiler is not None:
+            try:
+                if cuda:  # a device fault raises here, not in the profiler
+                    torch.cuda.synchronize()
+            finally:
+                try:
+                    profiler.stop()
+                except Exception as exc:
+                    print(f"[WARN] trace not written to {log_dir}: {exc!r}")
 
 
 class StageTimer:
