@@ -145,7 +145,7 @@ of them pass:
             (5-tap sharpen, Q4.12) bit for bit against the C++ oracle
             (``fir1d_fixed_rows_native``, ``bit_compare_u8``; its host
             time printed); kernel K against ``fft_radix2_native`` on one
-            16,384-point complex row (>= 120 dB); each of the thirteen
+            16,384-point complex row (>= 120 dB); each of the fourteen
             kernels byte-identical over two runs of its entry
             (``assert_deterministic``); under ``nan_guard`` config 5 cut
             to 16 × 200,000 through ``chain_forward`` "auto" (J) and
@@ -158,9 +158,26 @@ of them pass:
             memcpy intervals over the traced window) is printed; and
             ``chained_throughput`` on kernel A's headline step, within 2×
             of phase 9's median.
+16. benches kernel N (``copy_rows_``, the in-place copy) ``torch.equal`` to
+            ``copy_rows_plain`` at the roofline's 5,120, 20,480 and 81,920
+            rows of 8,192 bytes, at one row, widths 1-47, rows that fill no
+            whole CTA and views starting 1-15 bytes past a 16-byte
+            boundary, with the same tensor back and one launch a call,
+            and at each of them out of place too (``wft_copy_rows`` into
+            a destination that held the complement, between untouched
+            guard bytes, so a dropped head, tail or chunk shows);
+            its median time at 81,920 × 8,192 beside ``dst.copy_(x)`` and
+            its bound, refused under 0.95 of the bound (a copy that never
+            reached memory); then the seven ported benches
+            (``warmup_fir_filter_tpu_torch/benches/``) in their quick
+            forms through their ``main`` in this process (the scaling
+            bench's three modes over a world of one on NCCL), each JSON
+            line parsed, every gate held and the kernels of each run
+            launched.
 
 Launch counts are zeroed just before each main path (phases 4-8, 11, 13,
-14 and 15's traced fixed stage) and read just after it.  Then one JSON line for the kernels (each with its
+14, 15's traced fixed stage and each bench of 16) and read just after
+it.  Then one JSON line for the kernels (each with its
 time, its plain version's, its bound at the card's published peaks and,
 where one PyTorch call computes the same function, that call's time), the
 card line, and as the last line ``{"ok": true, "device": {...}}``.  Inputs
@@ -169,8 +186,10 @@ come from numpy/torch generators seeded with ``SEED``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import shutil
 import socket
@@ -187,11 +206,32 @@ import torch.nn.functional as F
 
 from warmup_fir_filter_tpu_torch import _build, native
 from warmup_fir_filter_tpu_torch.cli import main as cli_main
+from warmup_fir_filter_tpu_torch.benches import (
+    bench,
+    bench_2d,
+    bench_configs,
+    bench_roofline,
+    bench_scaling,
+    bench_streaming,
+    bench_taps,
+)
+from warmup_fir_filter_tpu_torch.benches.bench_configs import (
+    ideal_rows64,
+    snr_on_device,
+)
+from warmup_fir_filter_tpu_torch.benches.bench_streaming import (
+    stitch,
+    stream_source,
+)
 from warmup_fir_filter_tpu_torch.kernels.chain_fused import (
     FusedChain,
     chain_forward_fused,
     chain_fused,
     chain_fused_plain,
+)
+from warmup_fir_filter_tpu_torch.kernels.copy_rows import (
+    copy_rows_,
+    copy_rows_plain,
 )
 from warmup_fir_filter_tpu_torch.kernels.dispatch import (
     fir1d_fixed_rows_auto,
@@ -281,7 +321,6 @@ from warmup_fir_filter_tpu_torch.ops.fftfilt import fir_overlap_save, pick_nfft
 from warmup_fir_filter_tpu_torch.ops.fir1d import (
     fir1d_fixed_rows_torch,
     fir1d_ideal_rows_torch,
-    fixed_fir_prehaloed_i32,
 )
 from warmup_fir_filter_tpu_torch.ops.fir2d import (
     FILTER_BANK_2D,
@@ -419,7 +458,6 @@ PLAIN_LONG_CALLS = 3
 #: Blocks of the step-split loop, and the first ones left out of it.
 STEP_BLOCKS = 60
 STEP_SKIP = 10
-MASK32 = 0xFFFFFFFF
 #: Kernels E, F and G's grid: random filters (F's Lc 86-97, where its
 #: stride falls below left + center, and its widest; E just past it, E's
 #: widest and tallest) beside the bank, Q4.12 with a 32- and an 18-bit
@@ -482,7 +520,8 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 KERNELS = ("fir_band", "fir_direct", "fir_window", "window_rows",
            "fir2d_frame", "fir2d_oframe", "fir2d_bf16", "fir_float",
-           "resample", "chain_fused", "fft_rows", "osfilt", "osfilt_stream")
+           "resample", "chain_fused", "fft_rows", "osfilt", "osfilt_stream",
+           "copy_rows")
 #: Kernel K's grid (nfft × batch, complex, real and inverse rows) and
 #: kernel L's (every nfft, so each last-pass radix 2, 4, 8 and 16 and the
 #: 1,024-thread 16,384 plan, × the taps that fit, then long filters at
@@ -545,6 +584,42 @@ OSFILT_DETERMINISM_TAPS = 259
 GUARD_CHAIN_TIME = 200_000
 GUARD_CONFIG4_TIME = 1_000_000
 CHAINED_BEST_OF = 3
+#: Phase 16: kernel N at the roofline's sizes (40, 160 and 640 MB of
+#: 8,192-byte rows) and at awkward shapes (rows × width, then the byte
+#: offsets of views that start off a 16-byte boundary); its timed shape;
+#: the least share of its bound a time may show before the copy is taken
+#: to have vanished.
+COPY_ROWS = (5120, 20480, 81920)
+COPY_SHAPES = ((1, 1), (1, 8192), (1, 4099), (3, 1000), (7, 4099),
+               *((3, width) for width in range(1, 48)))
+COPY_OFFSETS = tuple(range(1, 16))
+COPY_TIMING_SHAPE = (81920, 8192)
+COPY_MIN_BOUND_SHARE = 0.95
+#: Kernel N out of place: the guard bytes each side of the destination,
+#: and the value they hold, which the copy must leave untouched.
+COPY_GUARD, COPY_SENTINEL = 64, 0xA5
+#: Each bench in its quick form, as phase 16 calls its ``main``, and the
+#: kernels its run must launch.
+BENCH_RUNS = (
+    ("bench_roofline", bench_roofline.main, ["--quick"],
+     ("copy_rows", "fir_band")),
+    ("bench", bench.main, ["--quick"],
+     ("fir_band", "copy_rows", "fir_direct")),
+    ("bench_taps", bench_taps.main, ["--quick"], ("fir_band", "fir_window")),
+    ("bench_streaming", bench_streaming.main, ["--quick"],
+     ("window_rows", "fir_band")),
+    ("bench_2d", bench_2d.main, ["--quick"],
+     ("fir2d_oframe", "fir2d_frame", "fir2d_bf16")),
+    ("bench_configs", bench_configs.main, ["--quick"],
+     ("fir_band", "fir2d_oframe", "osfilt_stream", "chain_fused", "resample",
+      "fir_float")),
+    ("bench_scaling_overhead", bench_scaling.main,
+     ["--mode", "overhead", "--backend", "nccl"], ("fir_band",)),
+    ("bench_scaling_weak", bench_scaling.main,
+     ["--mode", "weak", "--backend", "nccl"], ("fir_band",)),
+    ("bench_scaling_pp", bench_scaling.main,
+     ["--mode", "pp", "--backend", "nccl"], ()),
+)
 #: Kernel A's ``__global__`` names (``csrc/fir_band.cu:46``, ``:62``) as
 #: they appear in a trace's kernel events.
 KERNEL_A_NAMES = ("fir_band_kernel", "fir_band_short_kernel")
@@ -574,7 +649,8 @@ def launch_counts() -> dict:
             "fir_float": fir_float.launches, "resample": resample.launches,
             "chain_fused": chain_fused.launches,
             "fft_rows": fft_rows.launches, "osfilt": osfilt.launches,
-            "osfilt_stream": osfilt_stream.launches}
+            "osfilt_stream": osfilt_stream.launches,
+            "copy_rows": copy_rows_.launches}
 
 
 def reset_launch_counts() -> None:
@@ -583,6 +659,7 @@ def reset_launch_counts() -> None:
     fir2d_frame.launches = fir2d_oframe.launches = fir2d_bf16.launches = 0
     fir_float.launches = resample.launches = chain_fused.launches = 0
     fft_rows.launches = osfilt.launches = osfilt_stream.launches = 0
+    copy_rows_.launches = 0
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -1129,27 +1206,13 @@ def run_main_path(have_pil: bool) -> dict:
     return {"auto": auto, "backend_direct": direct}
 
 
-def stream_source(channels: int, block: int):
-    """``bench_streaming.py:77-84``'s blocks: a seeded noise table on the
-    card XOR a per-block tweak, the tweak computed on the host."""
-    noise = torch.from_numpy(np.random.default_rng(0x5EED).integers(
-        0, 256, size=(channels, block), dtype=np.uint8)).cuda()
-
-    def block_fn(b: int) -> torch.Tensor:
-        s = (b * 2654435761) & MASK32
-        s = ((s ^ (s >> 13)) * 1274126177) & MASK32
-        return noise ^ ((s >> 8) & 255)
-
-    return block_fn
-
-
 def run_stream(label: str, h: np.ndarray, num_blocks: int) -> dict:
     """One stream path with bench_streaming.py's gates: the timed scan,
     kill/resume at the midpoint, the stitch around it, scan-vs-blockwise."""
     qf = QFormat()
     channels, block = STREAM_CHANNELS, STREAM_BLOCK
     num_taps = int(h.size)
-    block_fn = stream_source(channels, block)
+    block_fn = stream_source(channels, block, torch.device("cuda"))
     geometry = pick_window_split(channels, block, num_taps)
     reset_launch_counts()
     stream = Fir1DStream(h, channels, qf, "cuda")
@@ -1177,29 +1240,11 @@ def run_stream(label: str, h: np.ndarray, num_blocks: int) -> dict:
     state_ok = bool(np.array_equal(resumed.state.carry, final.carry)
                     and resumed.state.samples_seen == final.samples_seen)
 
-    # Blocks half-1 and half through process() after a scan of half-1
-    # blocks, against the offline core over the regenerated window:
-    # emitted[t] = y_global[t - center], all interior for half >= 2.
-    stitched = Fir1DStream(h, channels, qf, "cuda")
-    stream_scanned(stitched, block_fn, half - 1)
-    y_pair = [stitched.process(block_fn(b).cpu().numpy())
-              for b in (half - 1, half)]
-    got = torch.from_numpy(np.concatenate(y_pair, axis=1)).cuda()
-    center = num_taps // 2
-    left = num_taps - 1 - center
-    lo = (half - 1) * block - center - left
-    hi = (half + 1) * block
-    xcat = torch.cat([block_fn(b) for b in range(lo // block,
-                                                 (hi - 1) // block + 1)], dim=1)
-    off = lo - (lo // block) * block
-    window = xcat[:, off : off + got.shape[1] + num_taps - 1].to(torch.int32)
-    expected = fixed_fir_prehaloed_i32(
-        window, [int(v) for v in qf.quantize_coeffs(h)], qf.frac_bits,
-        qf.acc_bits)
-    stitch_ok = bool(torch.equal(got, expected))
-    del xcat, window, expected, got
+    # Blocks half-1 and half through process() against the offline core.
+    stitch_ok, y_before = stitch(h, qf, channels, block, half, block_fn,
+                                 torch.device("cuda"))
     cross_ok = bool(np.array_equal(sums_full[half - 1].astype(np.uint64),
-                                   host_emit_checksums(y_pair[0])))
+                                   host_emit_checksums(y_before)))
     counts = launch_counts()
     ckpt.unlink()
     result = {
@@ -1442,7 +1487,7 @@ def time_stream_step(card: str, sustained_ms: float) -> dict:
     qf = QFormat()
     channels, block = STREAM_CHANNELS, STREAM_BLOCK
     sub, g = pick_window_split(channels, block, 5)
-    block_fn = stream_source(channels, block)
+    block_fn = stream_source(channels, block, torch.device("cuda"))
     fir = FixedFir1d.from_numpy(FILTER_BANKS[5]["sharpen"], qf, "cuda")
     carry = torch.zeros((channels, 128), dtype=torch.uint8, device="cuda")
     parts = ("block", "window_rows", "fir_band", "checksums")
@@ -1483,15 +1528,6 @@ def time_stream_step(card: str, sustained_ms: float) -> dict:
           flush=True)
     return split
 
-def snr_on_card(reference: torch.Tensor, test: torch.Tensor) -> float:
-    """``ops.fftfilt.snr_db`` computed on the card, in float64."""
-    ref = reference.to(torch.float64)
-    noise = float((test.to(torch.float64) - ref).square().mean())
-    power = float(ref.square().mean())
-    if noise == 0.0:
-        return float("inf")
-    return 10.0 * float(np.log10(power / noise)) if power > 0 else -np.inf
-
 
 class FloatAgreement:
     """Counts float kernel-vs-plain comparisons, the largest |difference|
@@ -1509,7 +1545,7 @@ class FloatAgreement:
                                  f"{tuple(want.shape)}")
         err = (float((got.to(torch.float64) - want).abs().max())
                if got.numel() else 0.0)
-        snr = snr_on_card(want, got)
+        snr = snr_on_device(want, got)
         self.count += 1
         self.max_abs_err = max(self.max_abs_err, err)
         self.min_snr_db = min(self.min_snr_db, snr)
@@ -1618,7 +1654,7 @@ def check_long_branch(gen: torch.Generator) -> None:
             raise AssertionError(f"resample {up}/{down} L={num_taps} N={n}: "
                                  "past the f32 summation bound")
         print(f"[chip_smoke] resample {up}/{down} L={num_taps} N={n}: SNR "
-              f"{snr_on_card(want, got):.1f} dB, max |diff| "
+              f"{snr_on_device(want, got):.1f} dB, max |diff| "
               f"{float(err.max()):.3g}, at most "
               f"{float((err / bound.clamp_min(1e-300)).max()):.3g} of the "
               "bound", flush=True)
@@ -1675,9 +1711,9 @@ def run_config5(fm: tuple) -> tuple[dict, dict]:
             raise AssertionError(f"config 5 {signal} staged launches "
                                  f"{staged}: expected kernels I and H only")
     result = {
-        "fused_vs_staged_snr_db_fm": snr_on_card(outs["config5_fm_staged"],
+        "fused_vs_staged_snr_db_fm": snr_on_device(outs["config5_fm_staged"],
                                                  outs["config5_fm_auto"]),
-        "fused_vs_staged_snr_db_noise": snr_on_card(
+        "fused_vs_staged_snr_db_noise": snr_on_device(
             outs["config5_noise_staged"], outs["config5_noise_auto"]),
     }
     del outs
@@ -1734,13 +1770,13 @@ def time_chain(card: str, fm: tuple) -> dict:
     weight = torch.as_tensor(h_ch[::-1].copy(), dtype=torch.float32,
                              device="cuda").view(1, 1, -1)
     conv = F.conv1d(both.unsqueeze(1), weight, padding=left).squeeze(1)
-    conv_snr = snr_on_card(fir_float_plain(both, fir), conv)
+    conv_snr = snr_on_device(fir_float_plain(both, fir), conv)
     if not conv_snr >= 100.0:
         raise AssertionError(f"F.conv1d is not the channelizer's function "
                              f"(SNR {conv_snr:.1f} dB against kernel H's "
                              "plain version)")
     rs_weight, rs_pad = conv1d_resampler(rs)
-    rs_conv_snr = snr_on_card(resample_plain(x[:2], rs),
+    rs_conv_snr = snr_on_device(resample_plain(x[:2], rs),
                               conv1d_resample(x[:2], rs_weight, rs_pad, rs))
     if not rs_conv_snr >= 100.0:
         raise AssertionError(f"the F.conv1d resampler is not kernel I's "
@@ -1900,18 +1936,6 @@ def stream_taps(taps: int) -> np.ndarray:
     return design_lowpass(taps, 0.2)
 
 
-def ideal_fir64(x: torch.Tensor, h: np.ndarray) -> torch.Tensor:
-    """The ideal golden's function on the card, in float64: the same-mode
-    FIR ``y[n] = Σ_k h[k]·x[n − k + L//2]`` with a zero pad."""
-    taps = h.size
-    xp = F.pad(x.to(torch.float64), (taps - 1 - taps // 2, taps // 2))
-    y = torch.zeros(x.shape, dtype=torch.float64, device=x.device)
-    for k in range(taps):
-        y.add_(xp[:, taps - 1 - k : taps - 1 - k + x.shape[1]],
-               alpha=float(h[k]))
-    return y
-
-
 def run_config4(agree: dict) -> tuple[dict, dict, tuple]:
     """BASELINE config 4 at full size (phase 13): ``fir_overlap_save_pallas``
     through kernel M alone, against the float64 FIR (> 70 dB, the config's
@@ -1936,8 +1960,8 @@ def run_config4(agree: dict) -> tuple[dict, dict, tuple]:
             or not bool(torch.isfinite(y).all())):
         raise AssertionError(f"config 4: {y.dtype} {tuple(y.shape)} or "
                              "non-finite output")
-    result["snr_db_vs_ideal"] = snr_on_card(ideal_fir64(x, h), y)
-    result["snr_db_vs_torch_fft"] = snr_on_card(fir_overlap_save(x, h), y)
+    result["snr_db_vs_ideal"] = snr_on_device(ideal_rows64(x, h), y)
+    result["snr_db_vs_torch_fft"] = snr_on_device(fir_overlap_save(x, h), y)
     tables = FilterSpectrum(h, STREAM_NFFT,
                             d=_stream_geometry(CONFIG4_TAPS, 0)[1],
                             device="cuda")
@@ -1958,7 +1982,7 @@ def run_config4(agree: dict) -> tuple[dict, dict, tuple]:
     counts["config4_shards"] = launch_counts()
     only(counts["config4_shards"], "osfilt_stream", CONFIG4_SHARDS,
          "config 4 shard-local")
-    result["shards_snr_db_vs_unsharded"] = snr_on_card(y, torch.cat(parts, 1))
+    result["shards_snr_db_vs_unsharded"] = snr_on_device(y, torch.cat(parts, 1))
     result["shard_hop"] = stream_plan(CONFIG4_TAPS, halo)[0]
     del blocks, parts
 
@@ -2034,7 +2058,7 @@ def run_chain_fft(agree: dict, fm: tuple, card: str) -> tuple[dict, dict]:
                 c[k] for k in KERNELS if k not in ("resample", kernel)):
             raise AssertionError(f"{run} launches {c}: expected kernels I "
                                  f"and {kernel} only")
-        result[f"{run}_snr_db"] = snr_on_card(chain_forward(*fm, reference),
+        result[f"{run}_snr_db"] = snr_on_device(chain_forward(*fm, reference),
                                               y)
     both = resample(torch.cat(fm, dim=0), PolyphaseResampler(
         cfg.resample_filter(), 2, 3, "cuda"))
@@ -2108,7 +2132,7 @@ def time_fft(card: str, agree: dict, x_u8: torch.Tensor, x: torch.Tensor,
     weight = torch.as_tensor(h[::-1].copy(), dtype=torch.float32,
                              device="cuda").view(1, 1, -1)
     x3 = x.unsqueeze(1)
-    conv_snr = snr_on_card(
+    conv_snr = snr_on_device(
         osfilt_stream(x, tables, off=0, out_len=x.shape[1], out_u8=False),
         F.conv1d(x3, weight, padding=left).squeeze(1))
     if not conv_snr >= 100.0:
@@ -2222,7 +2246,7 @@ class Phase14:
                 ideal: torch.Tensor) -> None:
         """Phase 13's gates: > 70 dB against the float64 FIR, within 2e-2
         of the unsharded call (tests/test_expert_fft_sharded.py:65)."""
-        snr = snr_on_card(ideal, got)
+        snr = snr_on_device(ideal, got)
         err = float((got - want).abs().max())
         self.result[f"{run}_snr_db_vs_ideal"] = snr
         self.result[f"{run}_max_abs_vs_unsharded"] = err
@@ -2260,7 +2284,7 @@ def run_parallel(card: str, x4: torch.Tensor, h4: np.ndarray,
                   cfg.demod_k_f)
     want_fused = chain_forward_fused(re, im, *fused_args)
     want4 = fir_overlap_save_pallas(x4, h4)
-    ideal4 = ideal_fir64(x4, h4)
+    ideal4 = ideal_rows64(x4, h4)
     x_long = x4[:, :PARALLEL_LONG_TIME].contiguous()
     h_long = design_lowpass(PARALLEL_LONG_TAPS, 0.25)
 
@@ -2288,7 +2312,7 @@ def run_parallel(card: str, x4: torch.Tensor, h4: np.ndarray,
                            backend="pallas").to_local())
         p.only("parallel_config4_259tap", "osfilt", 1)
         p.config4("parallel_config4_259tap", y, want_long,
-                  ideal_fir64(x_long, h_long))
+                  ideal_rows64(x_long, h_long))
 
         y = p.launched("parallel_fir1d", lambda: fir1d_fixed_sharded(
             x1, h5, mesh=mesh).to_local())
@@ -2499,7 +2523,6 @@ def time_parallel(card: str, pairs: dict) -> dict:
     return times
 
 
-
 def determinism_entries(x: torch.Tensor, gen: torch.Generator) -> dict:
     """Each kernel's entry as a caller reaches it, at the main paths'
     shapes: A at 19,456 × 8,192 (``x``), B at 5 and 4,097 taps, C at
@@ -2530,6 +2553,7 @@ def determinism_entries(x: torch.Tensor, gen: torch.Generator) -> dict:
     cfg = ChainConfig()
     return {
         "fir_band": lambda: fir1d_fixed_rows_auto(x, h5, qf),
+        "copy_rows": lambda: copy_rows_(x.clone()),
         "fir_direct": lambda: (
             fir1d_fixed_rows_pallas(x, h5, qf),
             fir1d_fixed_rows_pallas(x, design_lowpass(
@@ -2789,6 +2813,142 @@ def run_tools(card: str, band_ms: float) -> tuple[dict, dict]:
     return counts, result
 
 
+def check_copy_rows(agree: Agreement, x: torch.Tensor, label: str) -> None:
+    """Kernel N on ``x`` against its plain version on a clone: the same
+    bytes, the same tensor and storage back, exactly one launch."""
+    want = copy_rows_plain(x.clone())
+    ptr, before = x.data_ptr(), copy_rows_.launches
+    got = copy_rows_(x)
+    torch.cuda.synchronize()
+    if got is not x or got.data_ptr() != ptr:
+        raise AssertionError(f"copy_rows_ {label}: returned another tensor")
+    if copy_rows_.launches != before + 1:
+        raise AssertionError(f"copy_rows_ {label}: "
+                             f"{copy_rows_.launches - before} launches")
+    agree.check(got, want, f"copy_rows {label}")
+
+
+def check_copy_rows_apart(agree: Agreement, x: torch.Tensor,
+                          label: str) -> None:
+    """Kernel N out of place (``wft_copy_rows`` with two buffers): ``x``
+    into a destination at its alignment mod 16 that holds ``~x``, between
+    COPY_GUARD bytes of COPY_SENTINEL each side.  The destination must
+    equal ``x`` and every guard byte stay as it was, so a kernel that
+    drops its head, its tail or a chunk, or writes past either end,
+    fails where the in-place identity cannot show it."""
+    src = x.reshape(-1)
+    n = src.numel()
+    buf = torch.full((n + 2 * COPY_GUARD + 16,), COPY_SENTINEL,
+                     dtype=torch.uint8, device=x.device)
+    lead = COPY_GUARD + (x.data_ptr() - buf.data_ptr()) % 16
+    dst = buf[lead : lead + n]
+    dst.copy_(~src)
+    lib = _build.load_library()
+    code = lib.wft_copy_rows(src.data_ptr(), dst.data_ptr(), n,
+                             _build.stream_of(x))
+    _build.check_launch(lib, code, "copy_rows")
+    torch.cuda.synchronize()
+    agree.check(dst, src, f"copy_rows out of place {label}")
+    guards = torch.cat([buf[:lead], buf[lead + n :]])
+    if not bool((guards == COPY_SENTINEL).all()):
+        raise AssertionError(f"copy_rows out of place {label}: wrote "
+                             "outside its destination")
+
+
+def run_copy_rows(card: str, agree: Agreement) -> dict:
+    """Phase 16, kernel N: ``torch.equal`` to ``copy_rows_plain`` at the
+    roofline's sizes, at awkward shapes and on views that start off a
+    16-byte boundary, in place through ``copy_rows_`` and out of place
+    (:func:`check_copy_rows_apart`); then its median time at
+    COPY_TIMING_SHAPE beside
+    ``dst.copy_(x)``, the plain version and the bound, refusing a time
+    under COPY_MIN_BOUND_SHARE of the bound (an elided copy)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+
+    def rand(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
+                             generator=gen)
+
+    for rows in COPY_ROWS:
+        x = rand(rows, 8192)
+        check_copy_rows_apart(agree, x, f"{rows}x8192")
+        check_copy_rows(agree, x, f"{rows}x8192")
+    for shape in COPY_SHAPES:
+        x = rand(*shape)
+        check_copy_rows_apart(agree, x, f"{shape[0]}x{shape[1]}")
+        check_copy_rows(agree, x, f"{shape[0]}x{shape[1]}")
+    for offset in COPY_OFFSETS:
+        base = rand(5 * 1001 + 16)
+        view = base[offset : offset + 5 * 1001].view(5, 1001)
+        label = f"5x1001 at byte offset {offset}"
+        check_copy_rows_apart(agree, view, label)
+        check_copy_rows(agree, view, label)
+    x = rand(*COPY_TIMING_SHAPE)
+    dst = torch.empty_like(x)
+    med = median_ms({"copy_rows": lambda: copy_rows_(x),
+                     "copy_": lambda: dst.copy_(x),
+                     "plain": lambda: copy_rows_plain(x)},
+                    TIMING_REPS, TIMING_LAUNCHES)
+    bound_ms = bound(2 * x.numel(), 0, "int8")["bound_ms"]
+    times = {name: m for name, (m, _, _) in med.items()}
+    for name, (m, lo, hi) in med.items():
+        print(f"[chip_smoke] time {name} {COPY_TIMING_SHAPE[0]}x"
+              f"{COPY_TIMING_SHAPE[1]} u8: median {m:.4f} ms (min {lo:.4f}, "
+              f"max {hi:.4f}); bound {bound_ms:.4f} ms [{card}]", flush=True)
+    if times["copy_rows"] < COPY_MIN_BOUND_SHARE * bound_ms:
+        raise AssertionError(
+            f"copy_rows_ took {times['copy_rows']:.4f} ms, under "
+            f"{COPY_MIN_BOUND_SHARE} of its {bound_ms:.4f} ms bound: the "
+            "copy did not reach memory")
+    return times
+
+
+def bench_gates(name: str, line: dict) -> dict:
+    """The gates of a bench's JSON line, each of which must be True."""
+    gates = {"no_error": "error" not in line}
+    if name in ("bench", "bench_2d"):
+        gates["bit_exact_vs_golden"] = line.get("bit_exact_vs_golden")
+    elif name == "bench_taps":
+        gates.update({f"bit_exact_{taps}": d.get("bit_exact")
+                      for taps, d in line.get("details", {}).items()})
+    elif name == "bench_streaming":
+        gates.update({gate: line.get(gate) for gate in bench_streaming.GATES})
+    elif name == "bench_configs":
+        gates.update({config: entry.get("pass")
+                      for config, entry in line.get("configs", {}).items()})
+    elif name == "bench_roofline":
+        gates["probes"] = bool(line.get("probes"))
+    elif name in ("bench_scaling_overhead", "bench_scaling_weak"):
+        gates["bit_exact_vs_unsharded"] = line.get("bit_exact_vs_unsharded")
+    return gates
+
+
+def run_benches() -> tuple[dict, dict]:
+    """Phase 16, the benches: each in its quick form through its ``main``
+    in this process, its JSON line parsed and every gate held; the launch
+    counts zeroed before each run and read after it."""
+    counts, lines = {}, {}
+    for name, main_fn, argv, kernels in BENCH_RUNS:
+        start = time.perf_counter()
+        reset_launch_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = main_fn(argv)
+        torch.cuda.synchronize()
+        counts[name] = launch_counts()
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        seconds = time.perf_counter() - start
+        print(f"[chip_smoke] {name} {' '.join(argv)} (rc {rc}, "
+              f"{seconds:.1f} s): {json.dumps(line)}", flush=True)
+        gates = bench_gates(name, line)
+        missing = [k for k in kernels if not counts[name][k]]
+        if rc != 0 or not all(v is True for v in gates.values()) or missing:
+            raise AssertionError(f"{name}: rc {rc}, gates {gates}, kernels "
+                                 f"not launched {missing}")
+        lines[name] = {"rc": rc, "seconds": seconds, "line": line}
+    return counts, lines
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -2901,6 +3061,12 @@ def main() -> int:
 
     phase("15 tools")
     launches["traced_fixed_stage"], tools = run_tools(card, band_times[5])
+
+    phase("16 benches")
+    copy_agree = Agreement()
+    copy_times = run_copy_rows(card, copy_agree)
+    counts16, benches = run_benches()
+    launches.update(counts16)
     print(f"[chip_smoke] phases done at {time.perf_counter() - START:.1f} s",
           flush=True)
 
@@ -2951,6 +3117,8 @@ def main() -> int:
            for name, work in times_fft["work"].items()},
     }
     bounds["fft_rows"] = bounds[f"fft_rows_{FFT_TIMING_SHAPES[0][1]}"]
+    bounds["copy_rows"] = bound(
+        2 * COPY_TIMING_SHAPE[0] * COPY_TIMING_SHAPE[1], 0, "int8")
 
     def bounded(name: str) -> dict:
         """The bound, the bytes it counts and those bytes' time at the
@@ -3118,6 +3286,19 @@ def main() -> int:
                    ms_chain_shape=chain_fft["osfilt_stream_chain_ms"],
                    ms_chain_pallas=chain_fft["chain_pallas_ms"]),
     ]
+    kernels.append({
+        "name": "copy_rows", "route": "cuda",
+        "source": "warmup_fir_filter_tpu_torch/csrc/copy_rows.cu",
+        "replaces": "bench_roofline.py:46",
+        "also_replaces": ["bench_roofline.py:54", "bench_roofline.py:62"],
+        **counted("copy_rows"), "max_abs_err": copy_agree.max_abs_err,
+        "comparisons": copy_agree.count, "ms": copy_times["copy_rows"],
+        "plain_ms": copy_times["plain"], **bounded("copy_rows"),
+        "library_ms": copy_times["copy_"],
+        "library_call": "dst.copy_(x), out of place",
+        "shape": list(COPY_TIMING_SHAPE),
+        "benches": {name: {"seconds": b["seconds"], "value": b["line"].get(
+            "value")} for name, b in benches.items()}})
     # Phase 14's sharded paths: each run's launches of the kernel, and the
     # sharded (world 1) and unsharded medians where the run was timed.
     by_name = {kernel["name"]: kernel for kernel in kernels}

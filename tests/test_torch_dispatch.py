@@ -271,13 +271,13 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
     calls = (tmp_path / "bin" / "calls.log").read_text().splitlines()
     sources = _build.kernel_sources()
     compiles = [c for c in calls if " -c " in c]
-    assert len(compiles) == len(sources) == 12
+    assert len(compiles) == len(sources) == 13
     assert all(str(src) in " ".join(compiles) for src in sources)
     assert len(calls) == len(sources) + 1 and "-shared" in calls[-1]
     assert sorted(p.name for p in library.parent.iterdir()) == [
         _build.LIBRARY_NAME, f"{_build.LIBRARY_NAME}.sha256"]
     assert _build.build(tmp_path / "build") == library  # up to date
-    assert len((tmp_path / "bin" / "calls.log").read_text().splitlines()) == 13
+    assert len((tmp_path / "bin" / "calls.log").read_text().splitlines()) == 14
 
 
 def test_source_digest_follows_sources(monkeypatch, tmp_path):
@@ -288,11 +288,12 @@ def test_source_digest_follows_sources(monkeypatch, tmp_path):
     (tmp_path / "fir_band.cu").write_text("// changed\n")
     assert _build.source_digest() != first
     assert [p.name for p in _build.kernel_sources()] == [
-        "chain_fused.cu", "fft_rows.cu", "fir2d_bf16.cu", "fir2d_frame.cu",
+        "chain_fused.cu", "copy_rows.cu", "fft_rows.cu", "fir2d_bf16.cu", "fir2d_frame.cu",
         "fir_band.cu", "fir_direct.cu", "fir_float.cu", "fir_window.cu",
         "osfilt.cu", "osfilt_stream.cu", "resample.cu", "window_copy.cu"]
     for header in ("wft_window.cuh", "wft_fir2d.cuh", "wft_chain.cuh",
-                   "wft_band.cuh", "wft_fft_rows.cuh", "wft_band_mma.cuh"):
+                   "wft_band.cuh", "wft_fft_rows.cuh", "wft_band_mma.cuh",
+                   "wft_copy.cuh"):
         first = _build.source_digest()
         (tmp_path / header).write_text("// changed\n")
         assert _build.source_digest() != first

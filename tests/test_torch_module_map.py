@@ -1,12 +1,17 @@
-"""The port covers every module of the JAX package, name by name.
+"""The port covers every module of the JAX package, name by name, and every
+root bench.
 
 Every ``.py`` module of ``warmup_fir_filter_tpu/`` has a counterpart in
-``warmup_fir_filter_tpu_torch/`` under the same relative path, except the
-six TPU kernel files, which map through ``KERNEL_FILES``.  Every public
-top-level name a JAX module defines (``def``, ``class`` or assignment; read
-with ``ast``, so neither package is imported and third-party imports such
-as ``pl``, ``Mesh`` or ``partial`` are not names the module defines)
-exists in its counterpart, defined there or imported from the port's own
+``warmup_fir_filter_tpu_torch/`` under the same relative path; the eight
+TPU kernel files map through ``KERNEL_FILES``.  Every root ``bench*.py``
+maps to its port under ``benches/`` through ``ROOT_SCRIPTS``, and every
+other root script is in ``ROOT_EXEMPT`` with its reason.  Every ``.py``
+file of the repo that calls ``pallas_call`` (a TPU kernel) is a kernel
+file or a root script of those maps, so no TPU kernel lies outside them.
+Every public top-level name a JAX module defines (``def``, ``class`` or
+assignment; read with ``ast``, so neither package is imported and
+third-party imports such as ``pl``, ``Mesh`` or ``partial`` are not names
+the module defines) exists in its counterpart, defined there or imported from the port's own
 modules.  Two kinds of name may differ: ``*_jnp`` entries are ``*_torch``
 in the port, and each name of ``EXEMPT`` carries its reason.
 """
@@ -28,7 +33,36 @@ KERNEL_FILES = {
     "kernels/resample_mxu.py": ("kernels/resample.py",),
     "kernels/fir2d_mxu.py": ("kernels/fir2d.py",),
     "kernels/fft_pallas.py": ("kernels/fft.py",),
+    "kernels/window_copy.py": ("kernels/window_copy.py",),
+    "kernels/chain_fused.py": ("kernels/chain_fused.py",),
 }
+
+#: Root JAX benches → their ports in the port package.
+ROOT_SCRIPTS = {
+    "bench.py": "benches/bench.py",
+    "bench_2d.py": "benches/bench_2d.py",
+    "bench_configs.py": "benches/bench_configs.py",
+    "bench_roofline.py": "benches/bench_roofline.py",
+    "bench_scaling.py": "benches/bench_scaling.py",
+    "bench_streaming.py": "benches/bench_streaming.py",
+    "bench_taps.py": "benches/bench_taps.py",
+}
+#: Root scripts with no counterpart, each with its reason.
+ROOT_EXEMPT = {
+    "__graft_entry__.py":
+        "the earlier round's JAX compile and dry-run hook, whose role "
+        "chip_smoke.py now holds",
+    "chip_smoke.py": "the port's own smoke run on the card",
+    "yardsticks.py":
+        "PyTorch library calls timed beside the port's kernels, used "
+        "nowhere in the port",
+}
+#: Directories the pallas_call scan leaves out: those ``.gitignore`` lists
+#: (scratch space, build trees, run outputs) and git's own.
+SCAN_SKIP = {".git"} | {
+    line.strip().strip("/") for line in
+    (REPO_ROOT / ".gitignore").read_text().splitlines()
+    if line.strip().endswith("/")}
 
 _TPU_BLOCKING = ("a TPU blocking constant (VMEM budget, lane tiles or rows "
                  "per grid step); the CUDA kernels pick their own")
@@ -155,3 +189,57 @@ def test_renames_are_the_jnp_entries():
                        ("ops/fir1d.py", "fir1d_ideal_rows_jnp"),
                        ("ops/fir2d.py", "fir2d_fixed_jnp"),
                        ("ops/fir2d.py", "fir2d_ideal_jnp")}
+
+
+def root_scripts() -> list[str]:
+    return sorted(p.name for p in REPO_ROOT.glob("*.py"))
+
+
+def test_root_scripts_are_mapped_or_exempt():
+    assert set(root_scripts()) == set(ROOT_SCRIPTS) | set(ROOT_EXEMPT)
+    assert sorted(p.name for p in REPO_ROOT.glob("bench*.py")) == sorted(
+        ROOT_SCRIPTS)
+    assert all(len(reason) > 20 for reason in ROOT_EXEMPT.values())
+
+
+@pytest.mark.parametrize("script", sorted(ROOT_SCRIPTS))
+def test_root_bench_has_a_port(script):
+    target = PORT_ROOT / ROOT_SCRIPTS[script]
+    assert target.is_file(), f"{script}: no counterpart {target}"
+    assert f"Port of ``{script}``" in ast.get_docstring(
+        ast.parse(target.read_text()))
+
+
+def pallas_callers() -> dict[str, list[int]]:
+    """Every ``.py`` file of the repo (outside SCAN_SKIP) whose code calls
+    ``pallas_call``, read with ``ast``, with the lines of the calls."""
+    callers = {}
+    for path in sorted(REPO_ROOT.rglob("*.py")):
+        rel = path.relative_to(REPO_ROOT)
+        if set(rel.parts) & SCAN_SKIP:
+            continue
+        text = path.read_text()
+        if "pallas_call" not in text:
+            continue
+        lines = [node.lineno for node in ast.walk(ast.parse(text))
+                 if isinstance(node, ast.Call) and (
+                     getattr(node.func, "attr", None) == "pallas_call"
+                     or getattr(node.func, "id", None) == "pallas_call")]
+        if lines:
+            callers[str(rel)] = lines
+    return callers
+
+
+def test_every_pallas_call_is_in_the_maps():
+    callers = pallas_callers()
+    mapped = ({f"{JAX_ROOT.name}/{module}" for module in KERNEL_FILES}
+              | set(ROOT_SCRIPTS))
+    assert set(callers) <= mapped, sorted(set(callers) - mapped)
+    # Each mapped kernel file does call it, and the roofline harness's copy
+    # (bench_roofline.py:62) is the one TPU kernel outside the package.
+    assert set(callers) == mapped - (set(ROOT_SCRIPTS) - {"bench_roofline.py"})
+    assert callers["bench_roofline.py"] == [62]
+    # parallel/fft_sharded.py names it in a comment only.
+    sharded = JAX_ROOT / "parallel" / "fft_sharded.py"
+    assert "pallas_call" in sharded.read_text()
+    assert f"{JAX_ROOT.name}/parallel/fft_sharded.py" not in callers

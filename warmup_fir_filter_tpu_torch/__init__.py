@@ -20,6 +20,8 @@ Layout
 - ``pipeline/``     the 5-stage pipeline's stages, store and reports
 - ``utils/``        image IO, status lines, the stage timer
 - ``cli.py``        the pipeline CLI (``python -m warmup_fir_filter_tpu_torch``)
+- ``benches/``      the root benches' counterparts on the card
+                    (``python -m warmup_fir_filter_tpu_torch.benches.<name>``)
 
 Every function takes its device from its tensors or an explicit
 ``device`` argument: a CUDA tensor runs a kernel or raises, a CPU tensor

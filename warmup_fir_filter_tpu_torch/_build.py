@@ -143,6 +143,8 @@ _SIGNATURES = {
          _INT, _VOIDP],
         _INT,
     ),
+    # src, dst, bytes, stream
+    "wft_copy_rows": ([_VOIDP, _VOIDP, _LL, _VOIDP], _INT),
     "wft_error_string": ([_INT], ctypes.c_char_p),
 }
 

@@ -21,6 +21,8 @@
                    ``csrc/osfilt.cu``, ``csrc/osfilt_stream.cu``), port the
                    TPU row FFT K12, the framed overlap-save filter K13 and
                    the stream overlap-save filter K14 (``fft_pallas.py``);
+- ``copy_rows``    kernel N (``csrc/copy_rows.cu``), ports the roofline
+                   harness's in-place copy K15 (``bench_roofline.py``);
 - ``dispatch``     ``prepare_fixed_fir``, ``fir1d_fixed_rows_auto`` and
                    ``fir2d_fixed_auto``.
 
