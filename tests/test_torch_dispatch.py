@@ -177,7 +177,7 @@ def test_prepare_fixed_fir_by_taps(rng, num_taps, module):
     golden on each."""
     qf = QFormat(16, 12, 24)
     h = rng.uniform(-0.05, 0.05, size=num_taps)
-    fir = dispatch.prepare_fixed_fir(h, qf)
+    fir = dispatch.prepare_fixed_fir(h, qf, "cpu")
     assert type(fir).__name__ == module
     for width in (77, 130):
         x = _rows(rng, width)
@@ -187,10 +187,34 @@ def test_prepare_fixed_fir_by_taps(rng, num_taps, module):
         dispatch.prepare_fixed_fir(h, QFormat(32, 12, 48))
 
 
+@pytest.mark.parametrize("entry,module,shape", [
+    ("prepare_fixed_fir", "FixedFir1d", (5,)),
+    ("prepare_fixed_fir", "FixedFirWindow", (300,)),
+    ("prepare_fixed_fir", "FixedFirDirect", (4097,)),
+    ("prepare_fixed_fir2d", "FixedFir2d", (3, 5))])
+def test_prepare_entries_default_to_the_card(monkeypatch, entry, module,
+                                             shape):
+    """A filter prepared without a device is prepared on the card, as
+    ``Fir1DStream``'s is."""
+    seen = []
+
+    class Record:
+        def __init__(self, h, qformat, device):
+            seen.append(str(device))
+
+        @classmethod
+        def from_numpy(cls, h, qformat, device):
+            return cls(h, qformat, device)
+
+    monkeypatch.setattr(dispatch, module, Record)
+    getattr(dispatch, entry)(np.full(shape, 0.01), QFormat())
+    assert seen == ["cuda"]
+
+
 def test_prepared_direct_uploads_taps_once(rng):
     qf = QFormat()
     h = rng.uniform(-0.01, 0.01, size=4097)
-    fir = dispatch.prepare_fixed_fir(h, qf)
+    fir = dispatch.prepare_fixed_fir(h, qf, "cpu")
     assert fir.h_fixed.dtype == torch.int32
     np.testing.assert_array_equal(fir.h_fixed.numpy(),
                                   qf.quantize_coeffs(h).astype(np.int32))

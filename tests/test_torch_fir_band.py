@@ -6,8 +6,11 @@ each piece against ``warmup_fir_filter_tpu/kernels/fir_mxu.py`` and hold
 ``fir_band_plain`` (the band formulation in int64 matmuls) against
 ``fir1d_fixed_rows_mxu`` run in interpret mode, as the JAX tests run it on
 the CPU.  The kernel's two routes (``csrc/wft_band.cuh``) are built with
-g++ and run thread by thread on the host against ``fir_band_plain`` and
-the golden; the CUDA kernel itself is held to ``fir_band_plain`` on the
+g++ and run on the host against ``fir_band_plain`` and the golden: the
+short-tap route thread by thread, the digit-plane route's CTAs phase by
+phase and its warps with their 32 lanes as one unit, ``mma.sync`` s8 × u8
+emulated from its PTX fragment layout (the emulation itself held to a
+numpy matmul); the CUDA kernel itself is held to ``fir_band_plain`` on the
 card by ``chip_smoke.py``.
 
 Tolerances: every fixed-point comparison is ``np.array_equal`` (tolerance
@@ -182,6 +185,7 @@ def test_module_buffers_move_with_the_module():
 # ------------------------------------------------------------ the host core
 
 _HARNESS = r"""
+#include <algorithm>
 #include <array>
 #include <cstdint>
 #include <utility>
@@ -212,6 +216,52 @@ std::array<Short, sizeof...(Is)> short_table(
   return {&short_ctas<wft::kShortInstances[Is]>...};
 }
 
+// fir_band.cu's digit-plane kernel on `ctas` CTAs: each CTA's two set-up
+// phases thread by thread, then its warps one after another.
+template <int CHUNKS>
+void planes_ctas(const uint8_t* x, uint8_t* y, long long rows, long long n,
+                 const int8_t* digits, const wft::PlanesParams& p,
+                 long long ctas) {
+  const wft::PlanesLayout lay = wft::planes_layout(p.planes, p.taps, CHUNKS);
+  std::vector<uint32_t> words(lay.total / 4 + 4);
+  uint8_t* smem = reinterpret_cast<uint8_t*>(words.data());
+  for (long long b = 0; b < ctas; ++b) {
+    std::fill(words.begin(), words.end(), 0xA5A5A5A5u);
+    for (int i = 0; i < wft::kPlanesThreads; ++i)
+      wft::planes_setup_digits(smem, digits, p, lay, i);
+    for (int i = 0; i < wft::kPlanesThreads; ++i)
+      wft::planes_setup_band(smem, p, lay, i);
+    for (int w = 0; w < wft::kPlanesWarps; ++w) {
+      long long first = 0, count = 0;
+      wft::planes_share(p.items, ctas * wft::kPlanesWarps,
+                        b * wft::kPlanesWarps + w, &first, &count);
+      wft::planes_warp<CHUNKS>(x, y, rows, n, smem,
+                               smem + lay.warps + w * lay.warp_bytes, p, lay,
+                               first, count);
+    }
+  }
+}
+
+using Planes = void (*)(const uint8_t*, uint8_t*, long long, long long,
+                        const int8_t*, const wft::PlanesParams&, long long);
+
+template <int... Is>
+std::array<Planes, sizeof...(Is)> planes_table(
+    std::integer_sequence<int, Is...>) {
+  return {&planes_ctas<Is + 1>...};
+}
+
+void run_planes(const uint8_t* x, uint8_t* y, long long rows, long long n,
+                const int8_t* digits, int planes, int taps, const int* exps,
+                uint32_t bias, int wrap, int frac_bits, int acc_bits,
+                const int32_t* h, int ctas) {
+  static const auto table = planes_table(
+      std::make_integer_sequence<int, wft::kPlanesMaxChunks>{});
+  const wft::PlanesParams p = wft::planes_params(
+      rows, n, planes, taps, exps, bias, wrap, frac_bits, acc_bits, h);
+  table[p.chunks - 1](x, y, rows, n, digits, p, ctas);
+}
+
 }  // namespace
 
 // wft_fir_band's dispatch and kernels, a CTA's phases one after another.
@@ -219,38 +269,36 @@ extern "C" void fir_band_host(const uint8_t* x, uint8_t* y, long long rows,
                               long long n, const int8_t* digits, int planes,
                               int taps, const int* exps, uint32_t bias,
                               int wrap, int frac_bits, int acc_bits,
-                              const int32_t* h) {
-  if (taps <= wft::kShortMaxTaps) {
+                              const int32_t* h, int ctas) {
+  if (taps <= wft::kBandShortMaxTaps) {
     static const auto table = short_table(
-        std::make_integer_sequence<int, wft::kShortInstanceCount>{});
+        std::make_integer_sequence<int, wft::kBandShortInstances>{});
     const int i = wft::short_instance(taps);
     table[i](x, y, rows * n, n,
              wft::band_short_params(taps, wft::kShortInstances[i], h, bias,
                                     wrap, frac_bits, acc_bits));
     return;
   }
-  wft::BandParams p{};
-  p.planes = planes;
-  p.taps = taps;
-  p.left = taps - 1 - taps / 2;
-  for (int b = 0; b < planes; ++b) p.exps[b] = exps[b];
-  p.bias = bias;
-  p.needs_wrap = wrap;
-  p.frac_bits = frac_bits;
-  p.acc_bits = acc_bits;
-  std::vector<int8_t> xs(wft::kBandRows * wft::kBandWindow);
-  std::vector<int8_t> ds(wft::kBandMaxPlanes * wft::kBandMaxTaps);
-  auto* xs2 = reinterpret_cast<int8_t (*)[wft::kBandWindow]>(xs.data());
-  auto* ds2 = reinterpret_cast<int8_t (*)[wft::kBandMaxTaps]>(ds.data());
-  for (long long row0 = 0; row0 < rows; row0 += wft::kBandRows) {
-    for (long long col0 = 0; col0 < n; col0 += wft::kBandLane) {
-      for (int i = 0; i < wft::kBandLane; ++i)
-        wft::band_stage_thread(x, rows, n, row0, col0, digits, p, xs2, ds2,
-                               i);
-      for (int i = 0; i < wft::kBandLane; ++i)
-        wft::band_planes_thread(xs2, ds2, p, y, rows, n, row0, col0, i);
-    }
-  }
+  run_planes(x, y, rows, n, digits, planes, taps, exps, bias, wrap,
+             frac_bits, acc_bits, h, ctas);
+}
+
+// The digit-plane route alone at any tap count, on `ctas` CTAs.
+extern "C" void fir_band_planes_host(const uint8_t* x, uint8_t* y,
+                                     long long rows, long long n,
+                                     const int8_t* digits, int planes,
+                                     int taps, const int* exps, uint32_t bias,
+                                     int wrap, int frac_bits, int acc_bits,
+                                     const int32_t* h, int ctas) {
+  run_planes(x, y, rows, n, digits, planes, taps, exps, bias, wrap,
+             frac_bits, acc_bits, h, ctas);
+}
+
+// One emulated mma.sync m16n8k32 s8 x u8 over a warp's fragments.
+extern "C" void mma_s8u8_host(uint32_t* a, uint32_t* b, int32_t* d) {
+  wft::mma_s8u8(reinterpret_cast<int32_t (*)[4]>(d),
+                reinterpret_cast<uint32_t (*)[4]>(a),
+                reinterpret_cast<uint32_t (*)[2]>(b));
 }
 """
 
@@ -268,10 +316,16 @@ def kernel_core(tmp_path_factory):
                     str(work / "harness.cpp")], check=True, timeout=240)
     lib = ctypes.CDLL(str(work / "lib.so"))
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.fir_band_host.argtypes = [vp, vp, ll, ll, vp, i32, i32, vp,
-                                  ctypes.c_uint32, i32, i32, i32, vp]
+    for fn in (lib.fir_band_host, lib.fir_band_planes_host):
+        fn.argtypes = [vp, vp, ll, ll, vp, i32, i32, vp, ctypes.c_uint32,
+                       i32, i32, i32, vp, i32]
+    lib.mma_s8u8_host.argtypes = [vp] * 3
 
-    def run(x: np.ndarray, fir: band.FixedFir1d, offset: int = 0):
+    def run(x: np.ndarray, fir: band.FixedFir1d, offset: int = 0,
+            ctas: int = 3, planes_route: bool = False):
+        """The kernel on ``x`` (the digit-plane route on ``ctas`` CTAs, or
+        at any tap count with ``planes_route``); the output starts as
+        0xA5, so an unwritten byte shows."""
         rows, n = x.shape
         store = np.zeros(x.size + 128, np.uint8)
         start = (-store.ctypes.data) % 64 + offset
@@ -283,13 +337,14 @@ def kernel_core(tmp_path_factory):
         exps = np.asarray(fir.exponents, np.int32)
         taps = np.ascontiguousarray(fir.h_fixed.numpy())
         qf = fir.qformat
-        lib.fir_band_host(xa.ctypes.data, ya.ctypes.data, rows, n,
-                          digits.ctypes.data, len(fir.exponents),
-                          fir.num_taps, exps.ctypes.data,
-                          fir.bias_value & 0xFFFFFFFF, int(fir.wrap),
-                          qf.frac_bits, qf.acc_bits, taps.ctypes.data)
+        fn = lib.fir_band_planes_host if planes_route else lib.fir_band_host
+        fn(xa.ctypes.data, ya.ctypes.data, rows, n, digits.ctypes.data,
+           len(fir.exponents), fir.num_taps, exps.ctypes.data,
+           fir.bias_value & 0xFFFFFFFF, int(fir.wrap), qf.frac_bits,
+           qf.acc_bits, taps.ctypes.data, ctas)
         return ya.reshape(rows, n).copy()
 
+    run.mma_s8u8 = lib.mma_s8u8_host
     return run
 
 
@@ -297,9 +352,9 @@ def kernel_core(tmp_path_factory):
 #: regime; row counts that are no multiple of a CTA's rows or chunks.
 CORE_SHAPES = ((3, 1), (5, 15), (2, 16), (7, 17), (1, 31), (3, 4499),
                (1, 40000))
-#: Tap counts at each instance of the short route, between them (run
-#: zero-padded on the next), either side of the crossover (32) and at the
-#: digit planes' ends.
+#: Tap counts at each instance of the short route, either side of the
+#: crossover (6) and at each chunk count of the digit planes and their
+#: ends.
 CORE_TAPS = [(1, 2, 3, 4, 5), (6, 7, 8, 9, 10, 11, 12), (13, 16, 17, 24),
              (25, 31, 32), (33, 34, 63), (129, 256, 257)]
 
@@ -326,11 +381,12 @@ def test_kernel_core_matches_plain_and_golden(kernel_core, rng, taps, qf):
                     got, fir1d_fixed_golden_rows(x, h, qf), err_msg=label)
 
 
-@pytest.mark.parametrize("offset", [1, 3, 8, 15])
+@pytest.mark.parametrize("offset", range(1, 16))
 def test_kernel_core_misaligned_input(kernel_core, rng, offset):
-    """An input that starts off a 16-byte boundary takes byte reads and
-    gives the same outputs."""
-    for num_taps in (3, 5, 32, 63):
+    """An input that starts off a 16-byte boundary gives the same outputs:
+    byte reads on the short-tap route, items shifted to the rows' 16-byte
+    boundaries on the digit planes."""
+    for num_taps in (3, 5, 32, 33, 63, 129, 257):
         h = _taps(rng, QFormat(), num_taps)
         fir = band.FixedFir1d.from_numpy(h, QFormat())
         x = rng.integers(0, 256, size=(5, 333), dtype=np.uint8)
@@ -349,5 +405,147 @@ def test_kernel_core_bank_filters_and_zero_filter(kernel_core, rng):
         np.testing.assert_array_equal(kernel_core(x, fir),
                                       fir1d_fixed_golden_rows(x, h),
                                       err_msg=name)
-    fir = band.FixedFir1d.from_numpy(np.zeros(5), QFormat())
-    assert not kernel_core(x, fir).any()
+    for num_taps in (5, 40):
+        fir = band.FixedFir1d.from_numpy(np.zeros(num_taps), QFormat())
+        assert not kernel_core(x, fir).any()
+
+
+#: The digit-plane route's tap counts: each side of the crossover and of
+#: each chunk count (2 chunks to 49 taps, 3 to 81, 5 at 129, 9 from 242).
+PLANES_TAPS = (33, 34, 63, 64, 65, 129, 255, 256, 257)
+#: Formats of one to four digit planes, wrap and no-wrap, acc_bits 16-32.
+PLANES_FORMATS = [QFormat(), QFormat(8, 7, 16), QFormat(16, 12, 20),
+                  QFormat(16, 15, 31), QFormat(32, 12, 28),
+                  QFormat(32, 24, 32)]
+#: Widths 1-4,499 around the 128-column tile and the 1,024-column item,
+#: row counts no multiple of a CTA's four warps.
+PLANES_SHAPES = ((3, 1), (5, 15), (2, 16), (7, 17), (1, 127), (5, 128),
+                 (3, 129), (6, 511), (9, 513), (2, 1023), (3, 1024),
+                 (5, 1025), (3, 2100), (3, 4499))
+
+
+@pytest.mark.parametrize("num_taps", PLANES_TAPS)
+@pytest.mark.parametrize("qf", PLANES_FORMATS, ids=str)
+def test_planes_route_matches_plain_and_golden(kernel_core, rng, qf,
+                                               num_taps):
+    """The digit-plane route's CTAs and warps on the host (the MMA
+    emulated), each shape against the plain version and the golden."""
+    h = _taps(rng, qf, num_taps)
+    fir = band.FixedFir1d.from_numpy(h, qf)
+    for rows, n in PLANES_SHAPES:
+        x = rng.integers(0, 256, size=(rows, n), dtype=np.uint8)
+        got = kernel_core(x, fir)
+        label = (f"L={num_taps} {rows}x{n} {qf} planes={len(fir.exponents)}"
+                 f" wrap={fir.wrap}")
+        np.testing.assert_array_equal(
+            got, band.fir_band_plain(torch.from_numpy(x), fir).numpy(),
+            err_msg=label)
+        np.testing.assert_array_equal(
+            got, fir1d_fixed_golden_rows(x, h, qf), err_msg=label)
+
+
+@pytest.mark.parametrize("case", ["five_planes", "shift_32"])
+def test_planes_route_five_planes_and_shifts_past_32(kernel_core, rng, case):
+    """Five digit planes (int32 taps at both ends of their range; the
+    planes run in three passes of two) and a plane whose exponent is 32 or
+    more, which adds nothing mod 2^32."""
+    qf = QFormat(32, 24, 32)
+    if case == "five_planes":
+        h_fixed = rng.integers(-2**31, 2**31, size=77)
+        h_fixed[:3] = (-2**31, 2**31 - 1, 2**31 - 2**23)
+        want_planes = 5
+    else:
+        h_fixed = rng.integers(-200, 200, size=70) << 25
+        h_fixed[0] = 255 << 25
+        want_planes = 2
+    fir = band.FixedFir1d(h_fixed, qf)
+    assert len(fir.exponents) == want_planes
+    if case == "shift_32":
+        assert max(fir.exponents) >= 32
+    x = rng.integers(0, 256, size=(5, 1300), dtype=np.uint8)
+    np.testing.assert_array_equal(
+        kernel_core(x, fir),
+        band.fir_band_plain(torch.from_numpy(x), fir).numpy())
+
+
+@pytest.mark.parametrize("ctas", [1, 2, 5, 64])
+def test_planes_route_any_grid(kernel_core, rng, ctas):
+    """Warps that walk many items across rows, and grids with idle warps."""
+    qf = QFormat(16, 12, 20)
+    h = _taps(rng, qf, 129)
+    fir = band.FixedFir1d.from_numpy(h, qf)
+    x = rng.integers(0, 256, size=(13, 1000), dtype=np.uint8)
+    np.testing.assert_array_equal(
+        kernel_core(x, fir, ctas=ctas),
+        band.fir_band_plain(torch.from_numpy(x), fir).numpy())
+
+
+@pytest.mark.parametrize("num_taps", [1, 2, 3, 5, 6, 7, 8, 12, 16, 17, 24,
+                                      31, 32])
+def test_planes_route_at_short_tap_counts(kernel_core, rng, num_taps):
+    """The digit-plane route alone (``wft_fir_band_planes``) at every tap
+    count of the short route, where the crossover is measured, against the
+    kernel's dispatch: one chunk up to 17 taps."""
+    for qf in (QFormat(), QFormat(8, 7, 16), QFormat(32, 12, 28)):
+        h = _taps(rng, qf, num_taps)
+        fir = band.FixedFir1d.from_numpy(h, qf)
+        x = rng.integers(0, 256, size=(6, 700), dtype=np.uint8)
+        got = kernel_core(x, fir, planes_route=True)
+        np.testing.assert_array_equal(
+            got, band.fir_band_plain(torch.from_numpy(x), fir).numpy(),
+            err_msg=f"L={num_taps} {qf}")
+        np.testing.assert_array_equal(got, kernel_core(x, fir),
+                                      err_msg=f"L={num_taps} {qf}")
+
+
+def _fragments_s8u8(a: np.ndarray, b: np.ndarray, d: np.ndarray):
+    """A warp's fragments of mma.sync.aligned.m16n8k32.row.col with s8 A
+    and u8 B, from the PTX ISA's layout: lane 4g + t holds A rows g and
+    g + 8 at k 4t..4t+3 and 16+4t..16+4t+3, B column g at the same k, D
+    (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)."""
+    def word(v, dtype):
+        return int(np.ascontiguousarray(v, dtype).view("<u4")[0])
+
+    fa = np.zeros((32, 4), np.uint32)
+    fb = np.zeros((32, 2), np.uint32)
+    fd = np.zeros((32, 4), np.int32)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for reg, (row, k) in enumerate(((g, 4 * t), (g + 8, 4 * t),
+                                        (g, 16 + 4 * t), (g + 8, 16 + 4 * t))):
+            fa[lane, reg] = word(a[row, k : k + 4], np.int8)
+        fb[lane, 0] = word(b[4 * t : 4 * t + 4, g], np.uint8)
+        fb[lane, 1] = word(b[16 + 4 * t : 20 + 4 * t, g], np.uint8)
+        for j in range(4):
+            fd[lane, j] = d[g + 8 * (j >> 1), 2 * t + (j & 1)]
+    return fa, fb, fd
+
+
+@pytest.mark.parametrize("case", ["random", "extremes", "accumulate"])
+def test_mma_s8u8_emulation_matches_matmul(kernel_core, rng, case):
+    """The host emulation of mma.sync m16n8k32 s8 x u8 (what the CPU tests
+    run in place of the tensor cores) against a numpy matmul."""
+    a = rng.integers(-128, 128, size=(16, 32)).astype(np.int8)
+    b = rng.integers(0, 256, size=(32, 8)).astype(np.uint8)
+    d = np.zeros((16, 8), np.int32)
+    if case == "extremes":
+        a[:8], b[:, :4] = -128, 255
+        a[8:], b[:, 4:] = 127, 255
+    elif case == "accumulate":
+        d = rng.integers(-2**30, 2**30, size=(16, 8)).astype(np.int32)
+    fa, fb, fd = _fragments_s8u8(a, b, d)
+    kernel_core.mma_s8u8(fa.ctypes.data, fb.ctypes.data, fd.ctypes.data)
+    want = d.astype(np.int64) + a.astype(np.int64) @ b.astype(np.int64)
+    got = np.zeros((16, 8), np.int64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for j in range(4):
+            got[g + 8 * (j >> 1), 2 * t + (j & 1)] = fd[lane, j]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_short_max_taps_matches_the_kernel():
+    """The wrapper's record of the crossover is the kernel's."""
+    header = (_build.CSRC_DIR / "wft_band.cuh").read_text()
+    assert (f"constexpr int kBandShortMaxTaps = {band.SHORT_MAX_TAPS};"
+            in header)

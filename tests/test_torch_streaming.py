@@ -297,7 +297,7 @@ def test_kernel_step_bit_equal(rng, tap):
     qf = QFormat()
     h = np.asarray(FILTER_BANKS[5]["sharpen"])[:tap] if tap <= 5 else \
         rng.uniform(-0.01, 0.01, size=tap)
-    fir = prepare_fixed_fir(h, qf)
+    fir = prepare_fixed_fir(h, qf, "cpu")
     h_fixed = [int(v) for v in qf.quantize_coeffs(h)]
     carry = torch.from_numpy(
         rng.integers(0, 256, size=(3, tap - 1)).astype(np.int32))
@@ -328,8 +328,8 @@ def test_windowed_step_checksums_equal_plain_step(rng, tap):
     y_ref, carry_ref = _stream_step(x.to(torch.int32), carry,
                                     [int(v) for v in qf.quantize_coeffs(h)],
                                     tap, qf.frac_bits, qf.acc_bits)
-    y_win, new_carry = _stream_step_windowed(x, carry, prepare_fixed_fir(h, qf),
-                                             tap, sub, g)
+    y_win, new_carry = _stream_step_windowed(
+        x, carry, prepare_fixed_fir(h, qf, "cpu"), tap, sub, g)
     np.testing.assert_array_equal(
         _emit_windowed_checksums(y_win, channels, sub, tap).numpy(),
         default_emit_checksums(y_ref).numpy())

@@ -75,6 +75,13 @@ _SIGNATURES = {
          ctypes.c_uint32, _INT, _INT, _INT, _VOIDP, _VOIDP],
         _INT,
     ),
+    # wft_fir_band's digit-plane route at any tap count (probe_kernels.py's
+    # crossover timing), the same arguments
+    "wft_fir_band_planes": (
+        [_VOIDP, _VOIDP, _LL, _LL, _VOIDP, _INT, _INT, _VOIDP,
+         ctypes.c_uint32, _INT, _INT, _INT, _VOIDP, _VOIDP],
+        _INT,
+    ),
     # x, y, rows, n, taps, int32 taps (host), bias, needs_wrap, frac_bits,
     # acc_bits, copy words (device), copy_words, chunk table (device),
     # chunk table (host), chunks, planes, stream

@@ -1,5 +1,6 @@
-// Warp-level tensor-core band products shared by kernels C
-// (fir_window.cu), E and F (fir2d_frame.cu) and G (fir2d_bf16.cu).
+// Warp-level tensor-core band products shared by kernels A (fir_band.cu,
+// its digit-plane route), C (fir_window.cu), E and F (fir2d_frame.cu) and
+// G (fir2d_bf16.cu).
 //
 // C, E and F multiply staged, rebiased samples by the Toeplitz band of a
 // digit plane on mma.sync.aligned.m16n8k32 (s8 x s8 -> s32), as the TPU
@@ -9,14 +10,16 @@
 // reversed digits shifted by 0-3 bytes every fragment word is one aligned
 // 32-bit shared-memory load (band_copy_word).  G does the same on
 // mma.sync.aligned.m16n8k16 (bf16 x bf16 -> f32) with two copies of a tap
-// row's reversed bf16 taps shifted by one element.
+// row's reversed bf16 taps shifted by one element.  A holds the band
+// itself in registers instead, as the A operand, and multiplies the raw u8
+// samples on mma.sync m16n8k32 s8 x u8 (mma_s8u8; wft_band.cuh).
 //
 // Like the other headers, this one also compiles as plain C++.  On the host
 // a warp's 32 lanes run as one unit: per-lane values live in arrays of
 // kLaneSlots (32 on the host, 1 on the card), WFT_LANES(l) loops over the
-// lanes (on the card it is the thread's own lane), and mma_s8 and mma_bf16
-// emulate the instructions from the PTX fragment layout, so the CPU tests
-// run the kernels' own index maths.
+// lanes (on the card it is the thread's own lane), and mma_s8, mma_s8u8 and
+// mma_bf16 emulate the instructions from the PTX fragment layout, so the
+// CPU tests run the kernels' own index maths.
 #pragma once
 
 #include <cstdint>
@@ -64,6 +67,49 @@ WFT_INLINE uint32_t band_copy_word(uint32_t q_prev, uint32_t q, int sigma) {
   return byte_perm(q_prev, q, 0x7654u - 0x1111u * static_cast<uint32_t>(sigma));
 }
 
+#if !defined(__CUDA_ARCH__)
+// The host emulation of mma.sync m16n8k32 with s8 A and s8 (BSigned) or
+// u8 B fragments, from the PTX fragment layout (mma_s8 below).
+template <bool BSigned>
+inline void mma_k32_host(int32_t (*d)[4], uint32_t (*a)[4],
+                         uint32_t (*b)[2]) {
+  int32_t am[16][32];
+  int32_t bm[32][8];
+  for (int l = 0; l < kWarp; ++l) {
+    const int g = l >> 2;
+    const int t = l & 3;
+    for (int i = 0; i < 4; ++i) {
+      const auto s8 = [i](uint32_t w) {
+        return static_cast<int32_t>(static_cast<int8_t>(w >> (8 * i)));
+      };
+      const auto bv = [i](uint32_t w) {
+        return BSigned ? static_cast<int32_t>(static_cast<int8_t>(w >> (8 * i)))
+                       : static_cast<int32_t>((w >> (8 * i)) & 0xffu);
+      };
+      am[g][4 * t + i] = s8(a[l][0]);
+      am[g + 8][4 * t + i] = s8(a[l][1]);
+      am[g][16 + 4 * t + i] = s8(a[l][2]);
+      am[g + 8][16 + 4 * t + i] = s8(a[l][3]);
+      bm[4 * t + i][g] = bv(b[l][0]);
+      bm[16 + 4 * t + i][g] = bv(b[l][1]);
+    }
+  }
+  for (int l = 0; l < kWarp; ++l) {
+    const int g = l >> 2;
+    const int t = l & 3;
+    for (int j = 0; j < 4; ++j) {
+      const int row = g + 8 * (j >> 1);
+      const int col = 2 * t + (j & 1);
+      uint32_t sum = static_cast<uint32_t>(d[l][j]);
+      for (int k = 0; k < 32; ++k) {
+        sum += static_cast<uint32_t>(am[row][k] * bm[k][col]);
+      }
+      d[l][j] = static_cast<int32_t>(sum);
+    }
+  }
+}
+#endif
+
 // d += a * b over one m16n8k32 tile, s8 x s8 -> s32, for a whole warp.
 // Lane l = 4g + t holds the fragments of mma.sync.aligned.m16n8k32.row.col
 // (PTX ISA, "Matrix Fragments for mma.m16n8k32"), byte i of a word being
@@ -82,36 +128,22 @@ WFT_INLINE void mma_s8(int32_t (*d)[4], uint32_t (*a)[4], uint32_t (*b)[2]) {
       : "r"(a[0][0]), "r"(a[0][1]), "r"(a[0][2]), "r"(a[0][3]),
         "r"(b[0][0]), "r"(b[0][1]));
 #else
-  int32_t am[16][32];
-  int32_t bm[32][8];
-  for (int l = 0; l < kWarp; ++l) {
-    const int g = l >> 2;
-    const int t = l & 3;
-    for (int i = 0; i < 4; ++i) {
-      const auto s8 = [i](uint32_t w) {
-        return static_cast<int32_t>(static_cast<int8_t>(w >> (8 * i)));
-      };
-      am[g][4 * t + i] = s8(a[l][0]);
-      am[g + 8][4 * t + i] = s8(a[l][1]);
-      am[g][16 + 4 * t + i] = s8(a[l][2]);
-      am[g + 8][16 + 4 * t + i] = s8(a[l][3]);
-      bm[4 * t + i][g] = s8(b[l][0]);
-      bm[16 + 4 * t + i][g] = s8(b[l][1]);
-    }
-  }
-  for (int l = 0; l < kWarp; ++l) {
-    const int g = l >> 2;
-    const int t = l & 3;
-    for (int j = 0; j < 4; ++j) {
-      const int row = g + 8 * (j >> 1);
-      const int col = 2 * t + (j & 1);
-      uint32_t sum = static_cast<uint32_t>(d[l][j]);
-      for (int k = 0; k < 32; ++k) {
-        sum += static_cast<uint32_t>(am[row][k] * bm[k][col]);
-      }
-      d[l][j] = static_cast<int32_t>(sum);
-    }
-  }
+  mma_k32_host<true>(d, a, b);
+#endif
+}
+
+// mma_s8 with unsigned bytes in B: s8 x u8 -> s32 (kernel A's digit planes
+// times the raw samples).
+WFT_INLINE void mma_s8u8(int32_t (*d)[4], uint32_t (*a)[4],
+                         uint32_t (*b)[2]) {
+#if defined(__CUDA_ARCH__)
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3])
+      : "r"(a[0][0]), "r"(a[0][1]), "r"(a[0][2]), "r"(a[0][3]),
+        "r"(b[0][0]), "r"(b[0][1]));
+#else
+  mma_k32_host<false>(d, a, b);
 #endif
 }
 
@@ -211,6 +243,13 @@ WFT_INLINE void zero16(uint8_t* dst) {
   *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
 #else
   std::memset(dst, 0, 16);
+#endif
+}
+
+// A warp's barrier; on the host a warp's lanes run as one unit.
+WFT_INLINE void warp_sync() {
+#if defined(__CUDA_ARCH__)
+  __syncwarp();
 #endif
 }
 

@@ -63,8 +63,9 @@ from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
 
 def prepare_fixed_fir(h, qformat: QFormat = QFormat(),
-                      device: torch.device | str = "cpu") -> nn.Module:
-    """The filter prepared for its kernel on ``device``, chosen by tap count.
+                      device: torch.device | str = "cuda") -> nn.Module:
+    """The filter prepared for its kernel on ``device`` (the card unless
+    the caller names another), chosen by tap count.
 
     ``FixedFir1d`` (kernel A) for L ≤ 257, ``FixedFirWindow`` (kernel C)
     for 258-4,096 and ``FixedFirDirect`` (kernel B) beyond.  Raises for
@@ -105,10 +106,11 @@ def fir2d_fixed_auto(x_u8: torch.Tensor, h,
 
 
 def prepare_fixed_fir2d(
-    h, qformat: QFormat = QFormat(), device: torch.device | str = "cpu",
+    h, qformat: QFormat = QFormat(), device: torch.device | str = "cuda",
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """:func:`fir2d_fixed_auto`'s route for ``h``, with the filter prepared
-    once on ``device``: a function of an (H, W) uint8 image there.  The
+    once on ``device`` (the card unless the caller names another): a
+    function of an (H, W) uint8 image there.  The
     frame kernels over one :class:`FixedFir2d` when the column taps fit a
     band (Lc ≤ 257), else the int32 path."""
     h = np.asarray(h)

@@ -2,7 +2,7 @@
 
 Counterpart of ``warmup_fir_filter_tpu/kernels/fir_mxu.py`` (``:97-130``,
 ``:183-246``, ``:248-681``).  The coefficient encoding is carried over
-exactly, because it is the contract that int8 tensor cores will consume:
+exactly, because it is what the kernel's int8 tensor cores consume:
 
 - the quantized taps are split into signed base-256 digit planes after the
   common power of two is factored out (:func:`signed_base256_digits`,
@@ -14,9 +14,11 @@ exactly, because it is the contract that int8 tensor cores will consume:
   accumulator (:func:`band_bias`).
 
 :class:`FixedFir1d` holds all of it as buffers.  :func:`fir_band` launches
-``csrc/fir_band.cu`` on a CUDA tensor (up to 32 taps its short-tap route,
+``csrc/fir_band.cu`` on a CUDA tensor (up to :data:`SHORT_MAX_TAPS` taps
+its short-tap route,
 which multiplies the raw samples by ``h_fixed`` and gives the same
-accumulator mod 2^32; beyond, the digit planes); on a CPU tensor it runs
+accumulator mod 2^32; beyond, each digit plane's band product on int8
+tensor cores); on a CPU tensor it runs
 :func:`fir_band_plain`, the band formulation itself in int64 matmuls, so
 the CPU tests hold the encoding against the JAX kernel and not only the
 outputs.
@@ -40,6 +42,9 @@ LANE = 128
 MAX_TAPS = 2 * LANE + 1
 #: Signed base-256 digits of an int32 coefficient.
 MAX_PLANES = 5
+#: Taps of the kernel's short-tap route (``wft_band.cuh``'s
+#: ``kBandShortMaxTaps``); the digit planes take longer filters.
+SHORT_MAX_TAPS = 6
 
 
 def signed_base256_digits(values: np.ndarray) -> np.ndarray:

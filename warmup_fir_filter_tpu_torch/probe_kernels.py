@@ -37,6 +37,19 @@ M (``osfilt_stream``) on one GPU.
         Q-formats x chunk lengths and against kernels A and C at 19,456 x
         8,192, kernel H against its plain version at every alignment, and
         kernel C's grid.
+    python3 warmup_fir_filter_tpu_torch/probe_kernels.py check band
+        ``-Xptxas -v`` and the SASS counts of ``fir_band.cu`` alone, then
+        kernel A against its plain version over BAND_CHECK_TAPS x
+        Q-formats (one to five digit planes) x widths 1-40,000 and inputs
+        at byte offsets 1-15 (``torch.equal``).
+    python3 warmup_fir_filter_tpu_torch/probe_kernels.py times TREE LABEL band
+        Kernel A at 19,456 x 8,192 u8 for BAND_TIMING_TAPS and
+        BAND_CROSSOVER_TAPS (the sharpen filters at 3 and 5 taps,
+        ``design_lowpass(L, 0.2)`` beyond, Q4.12) with the SHA-256 of its
+        outputs, kernel C's entry (``FixedFirWindow``) on the same filters
+        from 33 taps (kernel A's yardstick), and, where the tree has it,
+        A's digit-plane route alone (``wft_fir_band_planes``) at
+        BAND_CROSSOVER_TAPS: the crossover with the short-tap route.
     python3 warmup_fir_filter_tpu_torch/probe_kernels.py times TREE LABEL [chain|direct]
         CUDA-event medians (7 windows of 10 calls) at BASELINE config 5's
         shapes of kernel I (32 x 2,000,000, 2/3, 63 taps) and its
@@ -68,6 +81,14 @@ M (``osfilt_stream``) on one GPU.
         and L against their plain versions at config 4 (SNR), and the
         CUDA-event medians of M (f32; u8 in and out), L over config 4
         framed at nfft 2,048 and K at 8,192 x 2,048.
+    python3 warmup_fir_filter_tpu_torch/probe_kernels.py planes TREE LABEL
+        For a variant of kernel A's digit-plane route in the checkout at
+        TREE (``wft_band.cuh`` with one part removed or one constant
+        changed, to see what each part costs): the route alone, through
+        ``wft_fir_band_planes``, at 19,456 x 8,192 u8 for PLANES_TAPS of
+        ``design_lowpass(L, 0.2)``, Q4.12, as one line of CUDA-event
+        medians.  A removed part leaves wrong outputs, so nothing is
+        compared; time the variants beside this tree in one call.
 
 Run it from the repository root; ``chip_smoke.py`` is the full check.
 """
@@ -128,6 +149,19 @@ CHAIN_CHECK_LOW_RATES = ((1, 8, 63, 63, 8), (1, 15, 63, 63, 8))
 RATE_TIMINGS = ((2, 1), (1, 2), (2, 3), (1, 3), (1, 4), (4, 5), (1, 5),
                 (1, 8), (1, 16))
 FFT_SOURCES = ("fft_rows.cu", "osfilt.cu", "osfilt_stream.cu")
+#: Kernel A's tap counts in ``check band``: either side of the crossover
+#: (6, 7) and of each chunk count of the digit planes.
+BAND_CHECK_TAPS = (1, 5, 6, 7, 16, 17, 24, 31, 32, 33, 34, 47, 48, 63, 64,
+                   65, 80, 97, 112, 129, 144, 176, 208, 255, 256, 257)
+#: Kernel A's timed tap counts in ``times band``: the 5-tap bank, the
+#: short-tap route's crossover, and the digit planes' range.
+BAND_TIMING_TAPS = (5, 16, 24, 32, 33, 63, 129, 257)
+#: Kernel A's tap counts in ``planes``: one chunk, two (aligned rows), three
+#: (misaligned rows), five and nine.
+PLANES_TAPS = (16, 33, 63, 129, 257)
+#: Tap counts of the short-tap route at which ``times band`` also times the
+#: digit-plane route alone (``wft_fir_band_planes``), where the tree has it.
+BAND_CROSSOVER_TAPS = (3, 5, 6, 7, 8, 12, 16, 24, 32)
 
 
 def ptxas(label: str, sources=PTXAS_SOURCES) -> int:
@@ -447,6 +481,52 @@ def check_direct(rng) -> int:
     return fails + fh
 
 
+def check_band(rng) -> int:
+    """Kernel A against its plain version: BAND_CHECK_TAPS x formats of one
+    to five digit planes x widths around its items, ragged row counts, and
+    views at byte offsets 1-15; returns the mismatches."""
+    import numpy as np
+    import torch
+
+    from warmup_fir_filter_tpu_torch.kernels.fir_band import (
+        FixedFir1d, fir_band_plain)
+    from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
+
+    fails = count = 0
+    for fmt in ((16, 12, 32), (16, 12, 20), (8, 7, 16), (32, 12, 28),
+                (32, 24, 32)):
+        qf = QFormat(*fmt)
+        for taps in BAND_CHECK_TAPS:
+            span = min(qf.max_coeff_real, 8.0)
+            h = np.clip(rng.uniform(-span, span, taps),
+                        max(qf.min_coeff_real, -8), span)
+            fir = FixedFir1d.from_numpy(h, qf, "cuda")
+            fir_cpu = FixedFir1d.from_numpy(h, qf)
+            for rows, n in ((3, 1), (7, 15), (3, 16), (9, 17), (2, 31),
+                            (5, 127), (13, 513), (3, 4499), (2, 8192),
+                            (3, 16256), (1, 40000)):
+                x = rng.integers(0, 256, size=(rows, n), dtype=np.uint8)
+                got = fir(torch.from_numpy(x).cuda()).cpu()
+                want = fir_band_plain(torch.from_numpy(x), fir_cpu)
+                count += 1
+                if not torch.equal(got, want):
+                    fails += 1
+                    print("A MISMATCH", fmt, taps, rows, n, len(fir.exponents),
+                          int((got.int() - want.int()).abs().max()))
+            buf = torch.from_numpy(rng.integers(0, 256, size=5 * 333 + 16,
+                                                dtype=np.uint8)).cuda()
+            for off in range(1, 16):
+                xv = buf[off:off + 5 * 333].view(5, 333)
+                count += 1
+                if not torch.equal(fir(xv).cpu(),
+                                   fir_band_plain(xv.cpu(), fir_cpu)):
+                    fails += 1
+                    print("A MISALIGNED MISMATCH", fmt, taps, off)
+    torch.cuda.synchronize()
+    print(f"[A] {count} comparisons, {fails} mismatches", flush=True)
+    return fails
+
+
 def check(mode: str | None = None) -> int:
     import numpy as np
     import torch
@@ -461,8 +541,8 @@ def check(mode: str | None = None) -> int:
     from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
     from warmup_fir_filter_tpu_torch.ops.resample import design_lowpass
 
-    sources = {"chain": CHAIN_SOURCES,
-               "direct": DIRECT_SOURCES}.get(mode, PTXAS_SOURCES)
+    sources = {"chain": CHAIN_SOURCES, "direct": DIRECT_SOURCES,
+               "band": ("fir_band.cu",)}.get(mode, PTXAS_SOURCES)
     if ptxas("check", sources):
         return 1
     t0 = time.perf_counter()
@@ -474,6 +554,8 @@ def check(mode: str | None = None) -> int:
         return 1 if check_chain(rng) else 0
     if mode == "direct":
         return 1 if check_direct(rng) + check_window(rng) else 0
+    if mode == "band":
+        return 1 if check_band(rng) else 0
     fails = 0
     count = 0
     for fmt in ((16, 12, 32), (16, 12, 20), (8, 7, 16), (32, 12, 28)):
@@ -899,6 +981,76 @@ def time_direct(label: str) -> None:
         del first, others
 
 
+def time_band(label: str) -> None:
+    """Kernel A at 19,456 x 8,192 u8 for BAND_TIMING_TAPS and
+    BAND_CROSSOVER_TAPS with its outputs' SHA-256, kernel C's entry on the
+    same filters from 33 taps, and A's digit-plane route alone at
+    BAND_CROSSOVER_TAPS, each held equal to A; the sharpen filters at 3 and
+    5 taps, ``design_lowpass(L, 0.2)`` beyond, Q4.12."""
+    import ctypes
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from warmup_fir_filter_tpu_torch import _build
+    from warmup_fir_filter_tpu_torch.kernels.fir_band import FixedFir1d
+    from warmup_fir_filter_tpu_torch.kernels.fir_window import FixedFirWindow
+    from warmup_fir_filter_tpu_torch.models.filters import FILTER_BANKS
+    from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
+    from warmup_fir_filter_tpu_torch.ops.resample import design_lowpass
+
+    qf = QFormat()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randint(0, 256, (19456, 8192), dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    lib = _build.load_library()
+    planes_entry = getattr(lib, "wft_fir_band_planes", None)
+
+    def planes_route(fir):
+        """The digit-plane route alone, called as ``fir_band`` calls
+        ``wft_fir_band``."""
+        y = torch.empty_like(x)
+        code = planes_entry(
+            x.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1],
+            fir.digits.data_ptr(), len(fir.exponents), fir.num_taps,
+            ctypes.addressof(fir.exponents_c), fir.bias_value & 0xFFFFFFFF,
+            int(fir.wrap), qf.frac_bits, qf.acc_bits,
+            ctypes.addressof(fir.taps_c), _build.stream_of(x))
+        _build.check_launch(lib, code, "wft_fir_band_planes")
+        return y
+
+    runs = {}
+    taps_list = sorted(set(BAND_TIMING_TAPS) | set(BAND_CROSSOVER_TAPS))
+    for taps in taps_list:
+        h = (np.asarray(FILTER_BANKS[taps]["sharpen"]) if taps in (3, 5)
+             else design_lowpass(taps, 0.2))
+        fir = FixedFir1d.from_numpy(h, qf, "cuda")
+        got = fir(x)
+        if taps in BAND_CROSSOVER_TAPS and planes_entry is not None:
+            same = torch.equal(planes_route(fir), got)
+            print(f"[{label}] A planes route {taps} taps == A: {same}",
+                  flush=True)
+            runs[f"A planes route {taps} taps 19456x8192"] = (
+                lambda f=fir: planes_route(f))
+        digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+        line = f"[{label}] A {taps} taps sha256 {digest}"
+        if taps > 32:
+            fir_c = FixedFirWindow.from_numpy(h, qf, "cuda")
+            line += f", == C {torch.equal(got, fir_c(x))}"
+            runs[f"C {taps} taps 19456x8192"] = lambda f=fir_c: f(x)
+        print(line, flush=True)
+        del got
+        runs[f"A {taps} taps 19456x8192"] = lambda f=fir: f(x)
+    for kernel in ("A planes", "A", "C"):
+        for name, fn in runs.items():
+            if name.startswith(kernel) and (
+                    kernel != "A" or not name.startswith("A planes")):
+                m, lo, hi = median_ms(fn)
+                print(f"[{label}] {name}: median {m:.4f} ms (min {lo:.4f}, "
+                      f"max {hi:.4f})", flush=True)
+
+
 def times(tree: str, label: str, mode: str | None = None) -> None:
     root = os.path.abspath(tree)
     sys.path.insert(0, root)
@@ -939,6 +1091,9 @@ def times(tree: str, label: str, mode: str | None = None) -> None:
 
     if mode == "direct":
         time_direct(label)
+        return
+    if mode == "band":
+        time_band(label)
         return
     time_chain(label, report)
     if mode == "chain":
@@ -1040,6 +1195,44 @@ def times(tree: str, label: str, mode: str | None = None) -> None:
     })
 
 
+def planes(tree: str, label: str) -> None:
+    root = os.path.abspath(tree)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import ctypes
+
+    import torch
+
+    from warmup_fir_filter_tpu_torch import _build
+    from warmup_fir_filter_tpu_torch.kernels.fir_band import FixedFir1d
+    from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
+    from warmup_fir_filter_tpu_torch.ops.resample import design_lowpass
+
+    t0 = time.perf_counter()
+    lib = _build.load_library()
+    print(f"[{label}] build {time.perf_counter() - t0:.1f} s", flush=True)
+    qf = QFormat()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randint(0, 256, (19456, 8192), dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    y = torch.empty_like(x)
+
+    def call(fir):
+        code = lib.wft_fir_band_planes(
+            x.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1],
+            fir.digits.data_ptr(), len(fir.exponents), fir.num_taps,
+            ctypes.addressof(fir.exponents_c), fir.bias_value & 0xFFFFFFFF,
+            int(fir.wrap), qf.frac_bits, qf.acc_bits,
+            ctypes.addressof(fir.taps_c), _build.stream_of(x))
+        _build.check_launch(lib, code, "wft_fir_band_planes")
+
+    line = []
+    for taps in PLANES_TAPS:
+        fir = FixedFir1d.from_numpy(design_lowpass(taps, 0.2), qf, "cuda")
+        line.append(f"{taps}:{median_ms(lambda f=fir: call(f))[0]:.4f}")
+    print(f"[{label}] " + " ".join(line), flush=True)
+
+
 def variant(tree: str, label: str) -> None:
     root = os.path.abspath(tree)
     sys.path.insert(0, root)
@@ -1087,11 +1280,16 @@ def variant(tree: str, label: str) -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] in (["check"], ["check", "chain"], ["check", "direct"]):
+    if sys.argv[1:] in (["check"], ["check", "chain"], ["check", "direct"],
+                        ["check", "band"]):
         sys.exit(check((sys.argv[2:] or [None])[0]))
     if sys.argv[1:2] == ["times"] and (
-            len(sys.argv) == 4 or sys.argv[4:] in (["chain"], ["direct"])):
+            len(sys.argv) == 4 or sys.argv[4:] in (["chain"], ["direct"],
+                                                   ["band"])):
         times(sys.argv[2], sys.argv[3], (sys.argv[4:] or [None])[0])
+        sys.exit(0)
+    if sys.argv[1:2] == ["planes"] and len(sys.argv) == 4:
+        planes(sys.argv[2], sys.argv[3])
         sys.exit(0)
     if sys.argv[1:2] == ["variant"] and len(sys.argv) == 4:
         variant(sys.argv[2], sys.argv[3])
