@@ -34,8 +34,10 @@ of them pass:
             synthetic corpus at the reference corpus's size (seven images,
             67,975,252 samples per tap group); every fixed output against
             the host golden; the band kernel must have carried every fixed
-            output.  Then the same fixed stage with ``--backend direct``,
-            which kernel B must carry.
+            output.  Then the fixed stage alone under the JAX package's
+            other backend names, each run's outputs against the golden:
+            ``--backend pallas`` (kernel B alone), ``mxu`` (kernel A
+            alone) and ``tpu`` (the int32 path, no kernel).
 5. stream   ``stream_scanned`` at the geometry of ``bench_streaming.py``
             (16 channels × 4,000,000 samples a block, 252 blocks, 5-tap
             sharpen, Q4.12, blocks from a seeded noise table XOR a per-block
@@ -438,6 +440,10 @@ CORPUS = (
     ("img_007_checker", "checker", (641, 1280)),
 )
 FIXED_OUTPUTS = len(CORPUS) * 4 * 2  # images × filters × tap groups
+#: Phase 4's fixed-stage runs after the pipeline: (--backend, the one
+#: kernel that must carry every fixed output, or None for no kernel).
+FIXED_STAGE_RUNS = (("pallas", "fir_direct"), ("mxu", "fir_band"),
+                    ("tpu", None))
 BENCH_SHAPE = (19456, 8192)
 TIMING_WARMUP = 2
 TIMING_REPS = 7      # timed windows per path; the median is reported
@@ -1169,9 +1175,10 @@ def run_main_path(have_pil: bool) -> dict:
     if image_dir is not None:
         argv += ["--image-dir", str(image_dir)]
 
-    # The main path is two CLI runs: the 5-stage pipeline with the default
-    # backend (kernel A), then the fixed stage with --backend direct
-    # (kernel B), which no 3- or 5-tap filter reaches through "auto".
+    # The main path is the 5-stage pipeline with the default backend
+    # (kernel A), then the fixed stage under each other JAX backend name:
+    # "pallas" (kernel B, which no 3- or 5-tap filter reaches through
+    # "auto"), "mxu" (kernel A) and "tpu" (the int32 path, no kernel).
     reset_launch_counts()
     start = time.perf_counter()
     cli_main(argv + ["--backend", "auto"] + skips)
@@ -1194,25 +1201,36 @@ def run_main_path(have_pil: bool) -> dict:
     check_fixed_outputs(store, goldens)
     print(f"[chip_smoke] {FIXED_OUTPUTS} fixed outputs == host golden "
           "(band kernel)", flush=True)
+    launches = {"auto": auto}
 
-    reset_launch_counts()
-    start = time.perf_counter()
-    cli_main([
-        "--artifact-root", str(root), "--device", "cuda", "--backend",
-        "direct", "--skip-input", "--skip-ideal", "--skip-report",
-        "--skip-restore", "--overwrite-vectors"])
-    direct_s = time.perf_counter() - start
-    direct = launch_counts()
-    print(f"[chip_smoke] fixed stage --backend direct: {direct_s:.3f} s host "
-          f"clock, launches {direct}", flush=True)
-    if direct["fir_direct"] < FIXED_OUTPUTS or any(
-            direct[name] for name in KERNELS if name != "fir_direct"):
-        raise AssertionError("direct backend did not run through kernel B alone")
-    check_fixed_outputs(store, goldens)
-    print(f"[chip_smoke] {FIXED_OUTPUTS} fixed outputs == host golden "
-          "(direct kernel)", flush=True)
+    # The fixed stage alone again under the JAX package's other names: each
+    # through its own kernel, "tpu" through torch ops alone.  The outputs
+    # of the run before go first, so that each check reads this run's.
+    for backend, kernel in FIXED_STAGE_RUNS:
+        for tap in (3, 5):
+            shutil.rmtree(store.vector_dir("fixed", tap))
+        reset_launch_counts()
+        start = time.perf_counter()
+        cli_main([
+            "--artifact-root", str(root), "--device", "cuda", "--backend",
+            backend, "--skip-input", "--skip-ideal", "--skip-report",
+            "--skip-restore", "--overwrite-vectors"])
+        seconds = time.perf_counter() - start
+        counts = launch_counts()
+        print(f"[chip_smoke] fixed stage --backend {backend}: {seconds:.3f} s "
+              f"host clock, launches {counts}", flush=True)
+        if any(counts[name] for name in KERNELS if name != kernel) or (
+                kernel is not None and counts[kernel] < FIXED_OUTPUTS):
+            raise AssertionError(
+                f"--backend {backend} launch counts {counts}: expected "
+                + (f"{kernel} >= {FIXED_OUTPUTS} and no other kernel"
+                   if kernel else "no kernel"))
+        check_fixed_outputs(store, goldens)
+        print(f"[chip_smoke] {FIXED_OUTPUTS} fixed outputs == host golden "
+              f"(--backend {backend})", flush=True)
+        launches[f"backend_{backend}"] = counts
     # The corpus and its outputs stay for phase 15's traced fixed stage.
-    return {"auto": auto, "backend_direct": direct}
+    return launches
 
 
 def run_stream(label: str, h: np.ndarray, num_blocks: int) -> dict:

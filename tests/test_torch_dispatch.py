@@ -251,7 +251,7 @@ def test_every_backend_on_cpu_matches_golden(rng, backend):
 
 def test_band_backend_refuses_long_filters(rng):
     with pytest.raises(ValueError, match="257"):
-        stages._fixed_compute("band", _rows(rng), np.ones(300) / 300,
+        stages._fixed_compute("mxu", _rows(rng), np.ones(300) / 300,
                               QFormat(), torch.device("cpu"))
 
 

@@ -33,6 +33,7 @@ from warmup_fir_filter_tpu_torch.ops.fir1d import (
     fir1d_fixed_rows_torch,
     fir1d_ideal_rows_torch,
     fixed_epilogue_i32,
+    fixed_fir_prehaloed_i32,
     pad_rows_same_mode,
 )
 from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
@@ -264,3 +265,49 @@ def test_fixed_torch_4097_taps_golden(rng):
     x = rng.integers(0, 256, size=(2, 600), dtype=np.uint8)
     np.testing.assert_array_equal(_port(x, h, qf),
                                   fir1d_fixed_golden_rows(x, h, qf))
+
+
+def _prehaloed_case(rng, num_taps: int):
+    """u8 rows with their halo columns as int32, and int32 taps spread over
+    the whole int32 range, so that products and sums wrap."""
+    x_ext = rng.integers(0, 256, size=(3, 200 + num_taps - 1)).astype(np.int32)
+    taps = rng.integers(-2**31, 2**31, size=num_taps).astype(np.int32)
+    return x_ext, taps
+
+
+@pytest.mark.parametrize("form", ["position", "keyword"])
+@pytest.mark.parametrize("num_taps", [1, 5, 63])
+def test_prehaloed_core_takes_the_jax_call(rng, num_taps, form):
+    """The JAX signature ``(x_ext_i32, h_fixed_i32, num_taps, frac_bits,
+    acc_bits)`` at acc_bits 32, where the int32 sums wrap: bit-equal to the
+    JAX core, the taps given as a numpy array, a list or a tensor."""
+    x_ext, taps = _prehaloed_case(rng, num_taps)
+    args = (num_taps, 12, 32)
+    if form == "position":
+        want = jax_fir1d.fixed_fir_prehaloed_i32(x_ext, taps, *args)
+    else:
+        want = jax_fir1d.fixed_fir_prehaloed_i32(
+            x_ext_i32=x_ext, h_fixed_i32=taps, num_taps=num_taps,
+            frac_bits=12, acc_bits=32)
+    want = np.asarray(want)
+    for h in (taps, taps.tolist(), torch.from_numpy(taps)):
+        if form == "position":
+            got = fixed_fir_prehaloed_i32(torch.from_numpy(x_ext), h, *args)
+        else:
+            got = fixed_fir_prehaloed_i32(
+                x_ext_i32=torch.from_numpy(x_ext), h_fixed_i32=h,
+                num_taps=num_taps, frac_bits=12, acc_bits=32)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("num_taps", [1, 5, 63])
+def test_prehaloed_core_refuses_a_wrong_tap_count(rng, num_taps):
+    """The JAX core reads ``h_fixed_i32[k]`` for k < num_taps: a count
+    below the taps' drops the last ones, and one above repeats the last tap
+    (jnp clamps the index) or raises ``IndexError`` (a numpy array).  The
+    port raises ``ValueError`` for either."""
+    x_ext, taps = _prehaloed_case(rng, num_taps)
+    for wrong in (num_taps - 1, num_taps + 1):
+        with pytest.raises(ValueError, match="num_taps"):
+            fixed_fir_prehaloed_i32(torch.from_numpy(x_ext), taps, wrong,
+                                    12, 32)

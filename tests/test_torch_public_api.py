@@ -224,6 +224,10 @@ def _host_array_cases():
     from warmup_fir_filter_tpu.kernels import fir2d_mxu as jax_fir2d
     from warmup_fir_filter_tpu_torch.kernels import dispatch, fir2d
 
+    from warmup_fir_filter_tpu.ops import fir1d as jax_fir1d
+    from warmup_fir_filter_tpu.ops import fir2d as jax_fir2d_ops
+    from warmup_fir_filter_tpu_torch.ops import fir1d, fir2d as fir2d_ops
+
     cfg = port_chain.ChainConfig()
     h_rs, h_ch = cfg.resample_filter(), cfg.channelizer_filter()
     h5 = np.asarray(FILTER_BANKS[5]["sharpen"])
@@ -283,6 +287,30 @@ def _host_array_cases():
     ]
     h_rs_up = design_lowpass(63, 0.3, gain=2)
     h63 = design_lowpass(63, 0.25)
+    # The int32 and f32 paths of torch ops (the JAX package's *_jnp); the
+    # f32 ones equal XLA's on the CPU bit for bit at these filters.
+    fixed += [
+        ("fir1d_fixed_rows_torch", "u8",
+         lambda x: fir1d.fir1d_fixed_rows_torch(x, h63, fmt),
+         lambda x: jax_fir1d.fir1d_fixed_rows_jnp(x, h63, jfmt),
+         _equal),
+        ("fir1d_ideal_rows_torch", "u8",
+         lambda x: fir1d.fir1d_ideal_rows_torch(x, h5),
+         lambda x: jax_fir1d.fir1d_ideal_rows_jnp(x, h5),
+         _close(0.0, 0.0)),
+        ("fir2d_fixed_torch", "image",
+         lambda x: fir2d_ops.fir2d_fixed_torch(x, h2d, fmt),
+         lambda x: jax_fir2d_ops.fir2d_fixed_jnp(x, h2d, jfmt),
+         _equal),
+        ("fir2d_ideal_torch", "image",
+         lambda x: fir2d_ops.fir2d_ideal_torch(x, h2d),
+         lambda x: jax_fir2d_ops.fir2d_ideal_jnp(x, h2d),
+         _close(0.0, 0.0)),
+        ("resample_poly_fixed", "u8",
+         lambda x: port_resample.resample_poly_fixed(x, h_rs_up, 2, 3, fmt),
+         lambda x: jax_resample.resample_poly_fixed(x, h_rs_up, 2, 3, jfmt),
+         _equal),
+    ]
     k_f = cfg.demod_k_f
     seg = _fused_seg_tiles()
     return [
@@ -364,6 +392,8 @@ def _host_inputs(kind: str, rng) -> tuple:
         return tuple(p.astype(np.float32) for p in demod.fm_modulate(msg, 0.05))
     if kind == "u8":
         return (rng.integers(0, 256, size=(2, 1500), dtype=np.uint8),)
+    if kind == "image":
+        return (rng.integers(0, 256, size=FRAME_IMAGE, dtype=np.uint8),)
     if kind == "fft":
         return (rng.standard_normal((5, 512)).astype(np.float32),)
     if kind == "windows":

@@ -109,8 +109,7 @@ def stitch(h: np.ndarray, qf: QFormat, channels: int, block: int,
     off = lo - (lo // block) * block
     window = xcat[:, off : off + got.shape[1] + num_taps - 1].to(torch.int32)
     expected = fixed_fir_prehaloed_i32(
-        window, [int(v) for v in qf.quantize_coeffs(h)], qf.frac_bits,
-        qf.acc_bits)
+        window, qf.quantize_coeffs(h), num_taps, qf.frac_bits, qf.acc_bits)
     return bool(torch.equal(got, expected)), y_pair[0]
 
 

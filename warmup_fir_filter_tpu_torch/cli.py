@@ -4,9 +4,11 @@ The reference's 5-stage flow (``warmup_fir_filter_tpu/cli.py``): input
 vectors → ideal outputs → fixed outputs → compare reports → restored
 images, with the same flags, except that
 
-- ``--backend`` takes the port's choices ``{auto,band,direct,torch,golden}``
-  (the JAX package's ``auto,mxu,pallas,tpu,golden``) and defaults to
-  ``auto``;
+- ``--backend`` takes the JAX package's choices
+  ``{auto,tpu,pallas,mxu,golden}`` with their meanings
+  (``pipeline/stages.py``) and defaults to ``auto``, which runs the main
+  path on the hand-written kernels, where the JAX package's ``tpu`` would
+  run the int32 path of torch ops;
 - ``--device {cuda,cpu}`` (default ``cuda``) says where the fixed stage
   runs; ``cuda`` without a CUDA device raises;
 - ``--image-dir`` has no default: it is needed unless ``--skip-input``;

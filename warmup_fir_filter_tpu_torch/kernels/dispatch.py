@@ -11,7 +11,7 @@ on the input's device:
   ports K4 and is the only route past kernel C's 4,096 taps.  B walks
   kernel C's int8 tensor-core core over chunks of the taps, each chunk's
   digit planes trimmed to its nonzero taps, so it runs at C's rate per
-  nonzero tap for any L; up to 32 taps (the CLI's ``--backend direct``)
+  nonzero tap for any L; up to 32 taps (the CLI's ``--backend pallas``)
   it runs kernel A's short-tap core.
 - ``acc_bits > 32`` fits none of them: on a CUDA tensor (or a host array,
   which goes to the card) it raises, as ``FixedFir1d.from_numpy`` does;

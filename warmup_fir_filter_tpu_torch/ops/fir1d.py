@@ -1,7 +1,8 @@
 """1-D FIR paths in plain PyTorch: the fixed-point sim path and the f32 model.
 
 Counterpart of ``warmup_fir_filter_tpu/ops/fir1d.py`` (``:34-148``).  Both
-functions run on the device their input tensor lies on:
+functions run on the device their input tensor lies on, and put a host
+array on the card, as the JAX functions put one on their accelerator:
 
 - :func:`fir1d_fixed_rows_torch` is the bit-exact int32 path (the JAX
   package's ``"tpu"`` jnp path), the independent reference the tests hold
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
 
 
@@ -52,21 +54,28 @@ def fixed_epilogue_i32(acc: torch.Tensor, frac_bits: int,
 
 def fixed_fir_prehaloed_i32(
     x_ext_i32: torch.Tensor,
-    h_fixed: list[int],
+    h_fixed_i32,
+    num_taps: int,
     frac_bits: int,
     acc_bits: int,
 ) -> torch.Tensor:
     """Fixed FIR over int32 rows whose halo columns are already attached.
 
     ``x_ext`` has width ``N + L - 1``: ``L-1-center`` left halo columns and
-    ``center`` right ones.  ``h_fixed`` are the quantized taps as Python
-    ints, so the loop never reads the device.
+    ``center`` right ones.  ``h_fixed_i32`` are the quantized taps (a list,
+    a numpy array or a tensor), read once into Python ints, so the loop
+    never reads the device; ``num_taps`` must be their count.
     """
-    num_taps = len(h_fixed)
+    if isinstance(h_fixed_i32, torch.Tensor):
+        h_fixed_i32 = h_fixed_i32.cpu()
+    taps = np.asarray(h_fixed_i32, dtype=np.int64).reshape(-1).tolist()
+    if num_taps != len(taps):
+        raise ValueError(f"num_taps={num_taps} but h_fixed_i32 holds "
+                         f"{len(taps)} taps")
     n = x_ext_i32.shape[1] - (num_taps - 1)
     acc = torch.zeros((x_ext_i32.shape[0], n), dtype=torch.int32,
                       device=x_ext_i32.device)
-    for k, tap in enumerate(h_fixed):
+    for k, tap in enumerate(taps):
         start = num_taps - 1 - k
         # int32 multiply-add: wraps mod 2^32 like the reference's int32.
         acc.add_(x_ext_i32[:, start : start + n], alpha=tap)
@@ -84,20 +93,23 @@ def require_int32_format(qformat: QFormat) -> None:
 def fir1d_fixed_rows_torch(
     x_u8: torch.Tensor, h, qformat: QFormat = QFormat()
 ) -> torch.Tensor:
-    """Bit-exact fixed-point FIR over (B, N) uint8 rows on ``x_u8.device``.
+    """Bit-exact fixed-point FIR over (B, N) uint8 rows on ``x_u8.device``
+    (a host array goes to the card, ``_build.as_rows``).
 
     Requires ``qformat.tpu_native`` (acc_bits ≤ 32); wider accumulators
     belong to the host golden model.
     """
     require_int32_format(qformat)
-    h_fixed = [int(v) for v in qformat.quantize_coeffs(h).astype(np.int64)]
-    xp = pad_rows_same_mode(x_u8.to(torch.int32), len(h_fixed))
-    return fixed_fir_prehaloed_i32(xp, h_fixed, qformat.frac_bits,
-                                   qformat.acc_bits)
+    h_fixed = qformat.quantize_coeffs(h).astype(np.int64)
+    xp = pad_rows_same_mode(_build.as_rows(x_u8, torch.int32), h_fixed.size)
+    return fixed_fir_prehaloed_i32(xp, h_fixed, h_fixed.size,
+                                   qformat.frac_bits, qformat.acc_bits)
 
 
 def fir1d_ideal_rows_torch(x_u8: torch.Tensor, h) -> torch.Tensor:
-    """Float32 ideal FIR over (B, N) uint8 rows. Unclamped f32 output."""
+    """Float32 ideal FIR over (B, N) uint8 rows on ``x_u8.device`` (a host
+    array goes to the card, ``_build.as_rows``). Unclamped f32 output."""
+    x_u8 = _build.as_rows(x_u8)
     h32 = torch.as_tensor(np.asarray(h, dtype=np.float64),
                           dtype=torch.float32, device=x_u8.device)
     num_taps = int(h32.numel())

@@ -13,9 +13,9 @@ module level, so its numpy parts are copied here rather than imported:
   reference's, then the epilogue of ``ops/fir1d.py``;
 - :func:`fir2d_ideal_torch` is the f32 model (``fir2d_ideal_jnp``, ``:165``).
 
-Both torch paths run on the device their input lies on, as shifted slices
-and adds.  No ``conv2d``: on the card that runs through cuDNN, in TF32 by
-default.
+Both torch paths run on the device their input tensor lies on (a host
+array goes to the card), as shifted slices and adds.  No ``conv2d``: on
+the card that runs through cuDNN, in TF32 by default.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.ops.fir1d import fixed_epilogue_i32
 from warmup_fir_filter_tpu_torch.ops.qformat import (
     QFormat,
@@ -132,24 +133,27 @@ def fir2d_fixed_torch(
     x_u8: torch.Tensor, h, qformat: QFormat = QFormat()
 ) -> torch.Tensor:
     """Bit-exact fixed-point 2-D FIR over an (H, W) uint8 image on
-    ``x_u8.device`` (the int32 sim path, ``fir2d_fixed_jnp``)."""
+    ``x_u8.device`` (the int32 sim path, ``fir2d_fixed_jnp``; a host array
+    goes to the card, ``_build.as_rows``)."""
     require_int32_format(qformat)
     h_fixed = qformat.quantize_coeffs(np.asarray(h)).astype(np.int64)
     taps_r, taps_c = h_fixed.shape
+    x = _build.as_rows(x_u8, torch.int32)
     return fixed_fir2d_prehaloed_i32(
-        pad_2d(x_u8.to(torch.int32), taps_r, taps_c), h_fixed, taps_r,
-        taps_c, qformat.frac_bits, qformat.acc_bits)
+        pad_2d(x, taps_r, taps_c), h_fixed, taps_r, taps_c,
+        qformat.frac_bits, qformat.acc_bits)
 
 
 def fir2d_ideal_torch(x_u8: torch.Tensor, h) -> torch.Tensor:
     """Float32 ideal 2-D FIR over an (H, W) uint8 image. Unclamped.
 
     One f32 multiply and add per tap over shifted slices, in the order of
-    ``fir2d_ideal_jnp``; elementwise, so no TF32 setting applies.
+    ``fir2d_ideal_jnp``; elementwise, so no TF32 setting applies.  A host
+    array goes to the card (``_build.as_rows``).
     """
     h32 = np.asarray(h, dtype=np.float64).astype(np.float32)
     taps_r, taps_c = h32.shape
-    x = x_u8.to(torch.float32)
+    x = _build.as_rows(x_u8, torch.float32)
     rows, cols = x.shape
     xp = pad_2d(x, taps_r, taps_c)
     acc = torch.zeros_like(x)

@@ -233,10 +233,11 @@ def resample_poly(
 def resample_poly_fixed(
     x_u8: torch.Tensor, h, up: int, down: int, qformat: QFormat = QFormat()
 ) -> torch.Tensor:
-    """Bit-exact fixed-point polyphase resampler on ``x_u8.device``."""
+    """Bit-exact fixed-point polyphase resampler on ``x_u8.device`` (a host
+    array goes to the card, ``_build.as_rows``)."""
     require_int32_format(qformat)
     h_fixed = qformat.quantize_coeffs(np.asarray(h)).astype(np.int64)
-    x = x_u8.to(torch.int64)
+    x = _build.as_rows(x_u8, torch.int64)
     out_len, _, _, center = _plan(int(x.shape[1]), up, down, h_fixed.size)
     taps = _polyphase_taps(h_fixed, up)
     plan = _phase_plan(up, down, center, out_len)

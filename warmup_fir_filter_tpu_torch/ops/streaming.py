@@ -164,7 +164,7 @@ def _stream_step(x_i32, carry_i32, h_fixed: list[int], num_taps: int,
         ext = torch.cat([carry_i32, x_i32], dim=1)
     else:
         ext = x_i32
-    y = fixed_fir_prehaloed_i32(ext, h_fixed, frac_bits, acc_bits)
+    y = fixed_fir_prehaloed_i32(ext, h_fixed, num_taps, frac_bits, acc_bits)
     return y, _carry_after(x_i32, carry_i32, num_taps)
 
 

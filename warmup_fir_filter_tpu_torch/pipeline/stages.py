@@ -6,13 +6,17 @@ JAX package's (``:45-155``, ``:183-233``), so both packages write the
 same artifacts; stage 3 (``:158-180``, ``:236-295``) runs on the GPU or
 the host.
 
-Backends of the fixed stage, with the JAX package's names in brackets:
+Backends of the fixed stage, under the JAX package's names and meanings:
 
-- ``"auto"``    ``kernels/dispatch.py::fir1d_fixed_rows_auto`` [auto],
-- ``"band"``    kernel A, the digit-plane band kernel [mxu],
-- ``"direct"``  kernel B, the direct-form kernel [pallas],
-- ``"torch"``   the plain int32 PyTorch path [tpu],
-- ``"golden"``  the numpy oracle on the host [golden].
+- ``"auto"``    ``kernels/dispatch.py::fir1d_fixed_rows_auto``: kernel A,
+  C or B by tap count (the default, where the JAX package's is ``"tpu"``),
+- ``"tpu"``     ``ops/fir1d.py::fir1d_fixed_rows_torch``, the int32 path of
+  torch ops, no kernel (the JAX path is XLA, not Pallas),
+- ``"pallas"``  ``kernels/fir_direct.py::fir1d_fixed_rows_pallas``, kernel B,
+- ``"mxu"``     ``kernels/fir_band.py::fir1d_fixed_rows_mxu``, kernel A,
+  which raises past 257 taps as the JAX entry does,
+- ``"golden"``  the numpy oracle on the host, which also takes any format
+  with ``acc_bits > 32``.
 
 ``device`` says where the samples go: ``"cuda"`` runs the kernels and
 raises when there is no CUDA device; ``"cpu"`` runs each kernel's plain
@@ -28,8 +32,10 @@ import torch
 
 from warmup_fir_filter_tpu_torch._build import resolve_device
 from warmup_fir_filter_tpu_torch.kernels.dispatch import fir1d_fixed_rows_auto
-from warmup_fir_filter_tpu_torch.kernels.fir_band import FixedFir1d
-from warmup_fir_filter_tpu_torch.kernels.fir_direct import fir_direct
+from warmup_fir_filter_tpu_torch.kernels.fir_band import fir1d_fixed_rows_mxu
+from warmup_fir_filter_tpu_torch.kernels.fir_direct import (
+    fir1d_fixed_rows_pallas,
+)
 from warmup_fir_filter_tpu_torch.models.filters import filter_bank
 from warmup_fir_filter_tpu_torch.models.golden import (
     fir1d_fixed_golden_rows,
@@ -46,7 +52,7 @@ from warmup_fir_filter_tpu_torch.utils import imageio
 from warmup_fir_filter_tpu_torch.utils.logging import timed_entry_point
 from warmup_fir_filter_tpu_torch.utils.profiling import StageTimer
 
-FIXED_BACKENDS = ("auto", "band", "direct", "torch", "golden")
+FIXED_BACKENDS = ("auto", "tpu", "pallas", "mxu", "golden")
 
 
 def _preview_payload(gray_u8: np.ndarray, *, max_rows: int = 8,
@@ -222,12 +228,12 @@ def _fixed_compute(backend: str, x_u8: np.ndarray, h: np.ndarray,
     x = torch.from_numpy(np.ascontiguousarray(x_u8)).to(device)
     if backend == "auto":
         y = fir1d_fixed_rows_auto(x, h, qformat)
-    elif backend == "band":
-        y = FixedFir1d.from_numpy(h, qformat, device)(x)
-    elif backend == "direct":
-        y = fir_direct(x, h, qformat)
-    elif backend == "torch":
+    elif backend == "tpu":
         y = fir1d_fixed_rows_torch(x, h, qformat)
+    elif backend == "pallas":
+        y = fir1d_fixed_rows_pallas(x, h, qformat)
+    elif backend == "mxu":
+        y = fir1d_fixed_rows_mxu(x, h, qformat)
     else:
         raise ValueError(
             f"Unknown fixed backend={backend!r}; expected {FIXED_BACKENDS}")
