@@ -60,6 +60,7 @@ from warmup_fir_filter_tpu_torch.kernels.fir_window import (
 from warmup_fir_filter_tpu_torch.models.golden import fir1d_fixed_golden_rows
 from warmup_fir_filter_tpu_torch.ops.fir2d import fir2d_fixed_torch
 from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
+from warmup_fir_filter_tpu_torch.utils.profiling import span
 
 
 def prepare_fixed_fir(h, qformat: QFormat = QFormat(),
@@ -69,14 +70,16 @@ def prepare_fixed_fir(h, qformat: QFormat = QFormat(),
 
     ``FixedFir1d`` (kernel A) for L ≤ 257, ``FixedFirWindow`` (kernel C)
     for 258-4,096 and ``FixedFirDirect`` (kernel B) beyond.  Raises for
-    ``acc_bits > 32``.
+    ``acc_bits > 32``.  The whole preparation is one ``fir.prepare`` span
+    under a profiler (``utils/profiling.py::span``).
     """
-    num_taps = int(np.asarray(h).size)
-    if num_taps <= MAX_TAPS:
-        return FixedFir1d.from_numpy(h, qformat, device)
-    if num_taps <= MAX_TAPS_WINDOWED:
-        return FixedFirWindow.from_numpy(h, qformat, device)
-    return FixedFirDirect(h, qformat, device)
+    with span("fir.prepare"):
+        num_taps = int(np.asarray(h).size)
+        if num_taps <= MAX_TAPS:
+            return FixedFir1d.from_numpy(h, qformat, device)
+        if num_taps <= MAX_TAPS_WINDOWED:
+            return FixedFirWindow.from_numpy(h, qformat, device)
+        return FixedFirDirect(h, qformat, device)
 
 
 def fir1d_fixed_rows_auto(x_u8: torch.Tensor, h,

@@ -36,6 +36,7 @@ from torch import nn
 from warmup_fir_filter_tpu_torch import _build
 from warmup_fir_filter_tpu_torch.ops.fir1d import fixed_epilogue_i32
 from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
+from warmup_fir_filter_tpu_torch.utils.profiling import span
 
 LANE = 128
 #: Tri-tile band limit: output tile p reads input tiles p-1, p, p+1 only.
@@ -302,4 +303,6 @@ def fir1d_fixed_rows_mxu(x_u8: torch.Tensor, h,
     the JAX ``fir_mxu.py::fir1d_fixed_rows_mxu`` entry (its TPU blocking
     knobs dropped) over kernel A."""
     x_u8 = _build.as_rows(x_u8)
-    return fir_band(x_u8, FixedFir1d.from_numpy(h, qformat, x_u8.device))
+    with span("fir.prepare"):
+        fir = FixedFir1d.from_numpy(h, qformat, x_u8.device)
+    return fir_band(x_u8, fir)

@@ -46,6 +46,7 @@ from warmup_fir_filter_tpu_torch.kernels.fir_window import (
 )
 from warmup_fir_filter_tpu_torch.ops.fir1d import require_int32_format
 from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
+from warmup_fir_filter_tpu_torch.utils.profiling import span
 
 #: Taps of the short-tap route (``wft_band.cuh``'s ``kShortMaxTaps``).
 SHORT_MAX_TAPS = 32
@@ -319,7 +320,9 @@ def fir_direct(x_u8: torch.Tensor, h, qformat: QFormat = QFormat()) -> torch.Ten
     launches in ``fir_direct.launches``.
     """
     _build.check_rows_u8(x_u8)
-    return FixedFirDirect(h, qformat, x_u8.device)(x_u8)
+    with span("fir.prepare"):
+        fir = FixedFirDirect(h, qformat, x_u8.device)
+    return fir(x_u8)
 
 
 fir_direct.launches = 0

@@ -47,6 +47,7 @@ from warmup_fir_filter_tpu_torch.kernels.window_copy import (
 )
 from warmup_fir_filter_tpu_torch.ops.fir1d import fixed_fir_prehaloed_i32
 from warmup_fir_filter_tpu_torch.ops.qformat import QFormat
+from warmup_fir_filter_tpu_torch.utils.profiling import span
 
 #: Odd (bijective mod 2^32) Weyl constant of the third checksum.
 WEYL = 2654435761
@@ -347,6 +348,10 @@ def stream_scanned(
 
     Returns the emitted values, leading axis ``num_blocks``: for the
     default emit a numpy uint32 ``(num_blocks, 3)`` array.
+
+    Under a profiler each block after ``block_fn`` is one ``stream.block``
+    span holding one ``stream.checksum`` span around its checksums or emit
+    (``utils/profiling.py::span``).
     """
     if not (rows_split in (None, "auto", "pallas")
             or (isinstance(rows_split, int) and not isinstance(rows_split, bool)
@@ -404,21 +409,24 @@ def stream_scanned(
                 raise ValueError(f"block {start_block + i} has shape "
                                  f"{tuple(x.shape)}, expected "
                                  f"{(channels, width)}")
-        if window_geom is not None:
-            y_win, carry = _stream_step_windowed(x, carry, fir, num_taps,
-                                                 *window_geom)
-            sums[i] = _weighted_sums(_windowed_column_sums(
-                y_win, channels, window_geom[0], num_taps), weights)
-            continue
-        if use_kernels:
-            y, carry = _stream_step_mxu(x, carry, fir, num_taps)
-        else:
-            y, carry = _stream_step(x.to(torch.int32), carry, h_fixed,
-                                    num_taps, qf.frac_bits, qf.acc_bits)
-        if default_emit:
-            sums[i] = _weighted_sums(_column_sums(y, dim=0), weights)
-        else:
-            emitted.append(emit_fn(y))
+        with span("stream.block"):
+            if window_geom is not None:
+                y_win, carry = _stream_step_windowed(x, carry, fir, num_taps,
+                                                     *window_geom)
+                with span("stream.checksum"):
+                    sums[i] = _weighted_sums(_windowed_column_sums(
+                        y_win, channels, window_geom[0], num_taps), weights)
+                continue
+            if use_kernels:
+                y, carry = _stream_step_mxu(x, carry, fir, num_taps)
+            else:
+                y, carry = _stream_step(x.to(torch.int32), carry, h_fixed,
+                                        num_taps, qf.frac_bits, qf.acc_bits)
+            with span("stream.checksum"):
+                if default_emit:
+                    sums[i] = _weighted_sums(_column_sums(y, dim=0), weights)
+                else:
+                    emitted.append(emit_fn(y))
 
     if default_emit:
         flat = torch.cat([sums.reshape(-1),

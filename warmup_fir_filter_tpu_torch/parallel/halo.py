@@ -48,6 +48,7 @@ from warmup_fir_filter_tpu_torch.parallel.mesh import (
     global_shape,
     local_block,
 )
+from warmup_fir_filter_tpu_torch.utils.profiling import span
 
 
 class PendingHalo:
@@ -80,37 +81,38 @@ def post_halo(x: torch.Tensor, dim: int, *, mesh: DeviceMesh, axis_name: str,
     """Post the ring exchange of ``x``'s edges along ``dim`` over mesh axis
     ``axis_name``: ``lo`` receives the previous rank's last ``lo_width``
     slices, ``hi`` the next rank's first ``hi_width``.  Every rank of the
-    axis must call it."""
-    width = x.shape[dim]
-    check_halo(width, lo_width, hi_width, axis_name)
-    group = mesh.get_group(axis_name)
-    index = mesh.get_local_rank(axis_name)
-    last = axis_size(mesh, axis_name) - 1
-    prev = dist.get_global_rank(group, index - 1) if index > 0 else None
-    nxt = dist.get_global_rank(group, index + 1) if index < last else None
-    ops, bufs = [], {}
-    for name, w, send_start, send_to, recv_from in (
-            ("lo", lo_width, width - lo_width, nxt, prev),
-            ("hi", hi_width, 0, prev, nxt)):
-        if not w:
-            bufs[name] = None
-            continue
-        shape = list(x.shape)
-        shape[dim] = w
-        bufs[name] = buf = x.new_zeros(shape)
-        if send_to is not None:
-            ops.append(dist.P2POp(dist.isend,
-                                  x.narrow(dim, send_start, w).contiguous(),
-                                  send_to, group))
-        if recv_from is not None:
-            ops.append(dist.P2POp(dist.irecv, buf, recv_from, group))
-    works = dist.batch_isend_irecv(ops) if ops else []
-    return PendingHalo(bufs["lo"], bufs["hi"], ops, works)
+    axis must call it.  One ``halo.post`` span under a profiler."""
+    with span("halo.post"):
+        width = x.shape[dim]
+        check_halo(width, lo_width, hi_width, axis_name)
+        group = mesh.get_group(axis_name)
+        index = mesh.get_local_rank(axis_name)
+        last = axis_size(mesh, axis_name) - 1
+        prev = dist.get_global_rank(group, index - 1) if index > 0 else None
+        nxt = dist.get_global_rank(group, index + 1) if index < last else None
+        ops, bufs = [], {}
+        for name, w, send_start, send_to, recv_from in (
+                ("lo", lo_width, width - lo_width, nxt, prev),
+                ("hi", hi_width, 0, prev, nxt)):
+            if not w:
+                bufs[name] = None
+                continue
+            shape = list(x.shape)
+            shape[dim] = w
+            bufs[name] = buf = x.new_zeros(shape)
+            if send_to is not None:
+                send = x.narrow(dim, send_start, w).contiguous()
+                ops.append(dist.P2POp(dist.isend, send, send_to, group))
+            if recv_from is not None:
+                ops.append(dist.P2POp(dist.irecv, buf, recv_from, group))
+        works = dist.batch_isend_irecv(ops) if ops else []
+        return PendingHalo(bufs["lo"], bufs["hi"], ops, works)
 
 
 def _attach(pending: PendingHalo, x: torch.Tensor, dim: int) -> torch.Tensor:
-    parts = [p for p in (pending.lo, x, pending.hi) if p is not None]
-    return torch.cat(parts, dim=dim) if len(parts) > 1 else x
+    with span("halo.attach"):
+        parts = [p for p in (pending.lo, x, pending.hi) if p is not None]
+        return torch.cat(parts, dim=dim) if len(parts) > 1 else x
 
 
 def exchange_halo_1d(

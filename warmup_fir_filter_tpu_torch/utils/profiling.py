@@ -1,4 +1,5 @@
-"""Tracing and stage timing: ``trace`` and the ``[OK] ...`` status line.
+"""Tracing and stage timing: ``trace``, ``span`` and the ``[OK] ...`` status
+line.
 
 - :func:`trace` — the counterpart of the JAX package's
   (``warmup_fir_filter_tpu/utils/profiling.py:23-44``) on
@@ -6,6 +7,26 @@
   CUDA is present, written for TensorBoard as ``*.pt.trace.json`` (a
   Chrome trace) into the directory; it never raises when the profiler
   cannot start, and then prints one ``[WARN]`` line;
+- :func:`span` — a named ``torch.profiler.record_function`` range while a
+  profiler is active (``trace``, the CLI's ``--profile``, or any
+  ``torch.profiler`` session of the caller's), else one shared
+  ``nullcontext``: with no profiler a span costs a flag read.  Any trace
+  of the port shows these five spans:
+
+  - ``fir.prepare``: a 1-D fixed filter quantized, its digit and band
+    planes built and its buffers uploaded
+    (``kernels/dispatch.py::prepare_fixed_fir``, and the preparation inside
+    ``kernels/fir_band.py::fir1d_fixed_rows_mxu`` and
+    ``kernels/fir_direct.py::fir_direct``);
+  - ``stream.block``: one block of ``ops/streaming.py::stream_scanned``
+    once the caller's ``block_fn`` has returned it: the step and the
+    block's checksums or emit;
+  - ``stream.checksum``: inside ``stream.block``, the block's checksums
+    (column sums, weighted sums, the write into the sums) or its emit;
+  - ``halo.post``: ``parallel/halo.py::post_halo``, the zeroed receive
+    buffers, the contiguous sends and ``batch_isend_irecv``;
+  - ``halo.attach``: ``parallel/halo.py::_attach``, the halo-extended
+    ``torch.cat``;
 - :class:`StageTimer` — a copy of the JAX package's
   (``warmup_fir_filter_tpu/utils/profiling.py:47-107``), except that
   ``sol_msps`` defaults to ``None``: the JAX package's default speed of
@@ -16,9 +37,23 @@
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
+import torch.autograd.profiler
+
+#: What :func:`span` returns while no profiler is active.
+_NO_SPAN = nullcontext()
+
+
+def span(name: str):
+    """``record_function(name)`` while a profiler is active, else a shared
+    ``nullcontext``.  The check reads the flag that every
+    ``torch.profiler``/``torch.autograd.profiler`` session sets on start
+    and clears on stop."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextmanager
