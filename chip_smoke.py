@@ -1180,16 +1180,23 @@ def run_main_path(have_pil: bool) -> dict:
     # "pallas" (kernel B, which no 3- or 5-tap filter reaches through
     # "auto"), "mxu" (kernel A) and "tpu" (the int32 path, no kernel).
     reset_launch_counts()
+    uploads_before = FixedFir1d.uploads
     start = time.perf_counter()
     cli_main(argv + ["--backend", "auto"] + skips)
     auto_s = time.perf_counter() - start
     auto = launch_counts()
+    uploads = FixedFir1d.uploads - uploads_before
     print(f"[chip_smoke] main path --backend auto: {auto_s:.3f} s host clock, "
-          f"launches {auto}", flush=True)
+          f"launches {auto}, FixedFir1d uploads {uploads}", flush=True)
     if auto["fir_band"] < FIXED_OUTPUTS or any(
             auto[name] for name in KERNELS if name != "fir_band"):
         raise AssertionError(f"launch counts {auto}: expected fir_band >= "
                              f"{FIXED_OUTPUTS} and no other kernel")
+    # Each fixed output prepares its filter on the card once: one upload,
+    # the digit planes kernel A reads.
+    if uploads != auto["fir_band"]:
+        raise AssertionError(f"{uploads} FixedFir1d uploads for "
+                             f"{auto['fir_band']} kernel A launches")
     for tap in (3, 5):
         summary = store.report_dir(tap) / f"compare_{tap}tap_summary.json"
         if not summary.is_file():

@@ -182,6 +182,48 @@ def test_module_buffers_move_with_the_module():
     assert moved.digits.device.type == "meta"
 
 
+LEAN_TAPS = (1, 5, 6, 7, 63, 257)
+LEAN_FORMATS = [QFormat(), QFormat(32, 24, 32)]
+
+
+@pytest.mark.parametrize("qf", LEAN_FORMATS, ids=str)
+@pytest.mark.parametrize("num_taps", LEAN_TAPS)
+def test_device_preparation_uploads_only_the_digits(rng, num_taps, qf):
+    """Off the CPU the filter puts one tensor on its device, the digit
+    planes kernel A reads; the host buffers equal the CPU filter's."""
+    h = _taps(rng, qf, num_taps)
+    before = band.FixedFir1d.uploads
+    cpu = band.FixedFir1d.from_numpy(h, qf)
+    assert band.FixedFir1d.uploads == before
+    fir = band.FixedFir1d.from_numpy(h, qf, "meta")
+    assert band.FixedFir1d.uploads == before + 1
+    assert [(name, b.device.type) for name, b in fir.named_buffers()] == [
+        ("digits", "meta")]
+    assert fir.digits.dtype == cpu.digits.dtype == torch.int8
+    assert fir.digits.shape == cpu.digits.shape
+    assert fir.exponents == cpu.exponents
+    for name in band.HOST_BUFFERS:
+        got, want = getattr(fir, name), getattr(cpu, name)
+        assert got.device.type == "cpu" and got.dtype == want.dtype, name
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("qf", LEAN_FORMATS, ids=str)
+@pytest.mark.parametrize("num_taps", LEAN_TAPS)
+def test_band_plain_on_planes_built_at_first_read(rng, num_taps, qf):
+    """A filter prepared off the CPU builds its band planes when the plain
+    version first reads them, once, and filters as the golden does."""
+    h = _taps(rng, qf, num_taps)
+    fir = band.FixedFir1d.from_numpy(h, qf, "meta")
+    assert not set(band.HOST_BUFFERS) & set(vars(fir))
+    x = rng.integers(0, 256, size=(3, 150), dtype=np.uint8)
+    got = band.fir_band_plain(torch.from_numpy(x), fir)
+    np.testing.assert_array_equal(got.numpy(),
+                                  fir1d_fixed_golden_rows(x, h, qf))
+    assert fir.a_cur is fir.a_cur
+    assert fir.digits.device.type == "meta"
+
+
 # ------------------------------------------------------------ the host core
 
 _HARNESS = r"""

@@ -13,7 +13,8 @@ exactly, because it is what the kernel's int8 tensor cores consume:
   ``128 · Σh`` (plus the rounding bias on the no-wrap path) starts the
   accumulator (:func:`band_bias`).
 
-:class:`FixedFir1d` holds all of it as buffers.  :func:`fir_band` launches
+:class:`FixedFir1d` holds all of it, with only the digit planes uploaded to
+a device the kernel runs on.  :func:`fir_band` launches
 ``csrc/fir_band.cu`` on a CUDA tensor (up to :data:`SHORT_MAX_TAPS` taps
 its short-tap route,
 which multiplies the raw samples by ``h_fixed`` and gives the same
@@ -156,44 +157,76 @@ def band_bias(h_fixed: np.ndarray, qformat: QFormat) -> tuple[int, bool]:
     return bias, bool(needs_wrap)
 
 
+#: The buffers that only the plain version and the tests read: kernel A's
+#: launch takes ``digits`` alone, and the rest as host values.
+HOST_BUFFERS = ("h_fixed", "a_prev", "a_cur", "a_next", "bias", "needs_wrap")
+
+
 class FixedFir1d(nn.Module):
     """A quantized filter prepared for the band kernel, on one device.
 
-    Buffers: ``h_fixed`` (int32 taps), ``digits`` (kept digit planes,
-    ``(D_kept, L)`` int8), ``a_prev`` / ``a_cur`` / ``a_next`` (tri-tile band
-    planes), ``bias`` (int32) and ``needs_wrap`` (bool).  The exponents and
-    the scalar launch constants are kept as Python values too, so a launch
-    never reads the device.
+    ``digits`` (kept digit planes, ``(D_kept, L)`` int8) is a buffer on the
+    filter's device: the one tensor kernel A's launch reads there.  The
+    exponents and the scalar launch constants are kept as Python values, so
+    a launch never reads the device.  :data:`HOST_BUFFERS` (``h_fixed``,
+    int32 taps; ``a_prev`` / ``a_cur`` / ``a_next``, tri-tile band planes;
+    ``bias``, int32; ``needs_wrap``, bool) are buffers beside it on the CPU,
+    where the plain version reads them every call; for any other device
+    they stay on the host and are built once, at their first read.
+    ``FixedFir1d.uploads`` counts the host-to-device tensors that
+    preparations make: one a preparation off the CPU.
     """
+
+    uploads = 0
 
     def __init__(self, h_fixed: np.ndarray, qformat: QFormat,
                  device: torch.device | str = "cpu"):
         super().__init__()
         h_fixed = np.asarray(h_fixed, dtype=np.int64)
         digits, exponents = kept_digit_planes(h_fixed)
-        a_prev, a_cur, a_next = band_planes_of(digits)
         bias, needs_wrap = band_bias(h_fixed, qformat)
         self.qformat = qformat
         self.num_taps = int(h_fixed.size)
         self.exponents = exponents
         self.bias_value = bias
         self.wrap = needs_wrap
+        self._h_fixed = h_fixed.astype(np.int32)
+        self._digits = np.ascontiguousarray(digits)
         # The launch's host arrays, built once: the exponents and the int32
         # taps (kernel parameters of the short-tap route).
         self.exponents_c = (ctypes.c_int * len(exponents))(*exponents)
         self.taps_c = (ctypes.c_int32 * h_fixed.size)(
-            *h_fixed.astype(np.int32).tolist())
+            *self._h_fixed.tolist())
+        device = torch.device(device)
+        self._host_at_first_read = device.type != "cpu"
+        self.register_buffer("digits",
+                             torch.as_tensor(self._digits, device=device))
+        if self._host_at_first_read:
+            FixedFir1d.uploads += 1
+        else:
+            for name, value in self._host_buffers().items():
+                self.register_buffer(name, value)
 
-        def buf(name: str, value: np.ndarray) -> None:
-            self.register_buffer(name, torch.as_tensor(value, device=device))
+    def _host_buffers(self) -> dict[str, torch.Tensor]:
+        """:data:`HOST_BUFFERS` on the host, from the taps and the digits."""
+        a_prev, a_cur, a_next = band_planes_of(self._digits)
+        return {
+            "h_fixed": torch.from_numpy(self._h_fixed),
+            "a_prev": torch.from_numpy(a_prev),
+            "a_cur": torch.from_numpy(a_cur),
+            "a_next": torch.from_numpy(a_next),
+            "bias": torch.tensor(self.bias_value, dtype=torch.int32),
+            "needs_wrap": torch.tensor(self.wrap),
+        }
 
-        buf("h_fixed", h_fixed.astype(np.int32))
-        buf("digits", np.ascontiguousarray(digits))
-        buf("a_prev", a_prev)
-        buf("a_cur", a_cur)
-        buf("a_next", a_next)
-        buf("bias", np.asarray(bias, dtype=np.int32))
-        buf("needs_wrap", np.asarray(needs_wrap))
+    def __getattr__(self, name: str):
+        # Reached only for a name that is not yet an attribute: off the CPU
+        # the host buffers are built at their first read and kept.
+        if name in HOST_BUFFERS and self.__dict__.get("_host_at_first_read"):
+            host = self._host_buffers()
+            self.__dict__.update(host)
+            return host[name]
+        return super().__getattr__(name)
 
     @classmethod
     def from_numpy(cls, h, qformat: QFormat = QFormat(),
